@@ -1,0 +1,19 @@
+"""cudf_tpu_torch: the PyTorch/CUDA port of cudf_tpu.
+
+Same module layout and names as ``cudf_tpu``, on torch tensors with an
+explicit device. Ingest entry points default to ``device="cuda"`` and
+raise when CUDA is missing; operators run on the device of their inputs.
+This package imports neither jax nor anything of ``cudf_tpu``.
+
+Ported so far: the columnar core, stats and row codes, the sort primitive,
+gather, null/mask compaction, and groupby-aggregate with its one-hot,
+code-sort and generic lanes (``ops/groupby.py``).
+"""
+from .core import dtypes  # noqa: F401
+from .core.column import Column  # noqa: F401
+from .core.table import Table  # noqa: F401
+from .ops.groupby import AggSpec, groupby_aggregate  # noqa: F401
+from .ops.stream_compaction import apply_boolean_mask, drop_nulls  # noqa: F401
+
+__all__ = ["Column", "Table", "AggSpec", "groupby_aggregate", "drop_nulls",
+           "apply_boolean_mask", "dtypes"]
