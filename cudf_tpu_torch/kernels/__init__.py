@@ -19,16 +19,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: dict = {}
-BUILD_LOG: dict = {}  # name -> (seconds, compiler output) of this process's build
 
 
 def _nvcc() -> str:
@@ -57,7 +55,6 @@ def build_all(names) -> None:
         return
     BUILD.mkdir(exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     procs = []
     for name, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -71,7 +68,6 @@ def build_all(names) -> None:
             failed.append(f"nvcc failed for {name}.cu:\n{err}")
             continue
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        BUILD_LOG[name] = (time.perf_counter() - t0, err)
     if failed:
         raise RuntimeError("\n".join(failed))
 

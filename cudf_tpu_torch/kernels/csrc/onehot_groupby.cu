@@ -17,9 +17,11 @@
 // exact for any group size (the TPU kernel keeps f32 across all tiles). No
 // TF32 tensor-core product: it would round the inputs.
 //
-// Bound: memory. It reads gid (4 B), V values (4V B) and the weight (4 B) of
-// each row once: 12 B a row at V = 1, ~0.8 GB at 2^26 rows, ~0.24 ms at the
-// H100 SXM's 3.35 TB/s. Known weakness, left for later: with few groups every
+// Bound: memory. It reads every row's gid (4 B) once, and the V values (4V B)
+// and the weight (4 B) only of rows whose gid lies in [0, K): 12 B a row at
+// V = 1 when all are in range, ~0.8 GB at 2^26 rows, ~0.24 ms at the H100
+// SXM's 3.35 TB/s; less when the padding rows carry gid -1, as on the
+// groupby lane. Known weakness, left for later: with few groups every
 // thread of a block hits the same few shared addresses, and shared atomics to
 // one address serialize.
 #include <cuda_runtime.h>
@@ -62,18 +64,13 @@ onehot_sum_count_kernel(const int32_t* __restrict__ gid,
 }  // namespace
 
 // gid i32[n], vals f32[n, V] row-major, weight f32[n], out f64[K, V+1]
-// zeroed by the caller. Launches on `stream`; returns cudaGetLastError().
+// zeroed by the caller; K * (V + 1) * 4 B must fit a block's default 48 KB of
+// shared memory. Launches on `stream`; returns cudaGetLastError().
 extern "C" int onehot_groupby_sum_count(const void* gid, const void* vals,
                                         const void* weight, void* out,
                                         long long n, int V, int K,
                                         void* stream) {
   const size_t smem = (size_t)K * (V + 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        onehot_sum_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const long long blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
   onehot_sum_count_kernel<<<(unsigned)blocks, kThreads, smem,
                             (cudaStream_t)stream>>>(

@@ -245,6 +245,47 @@ def test_every_agg_kind_generic_engine(kind, param):
     assert_same(got, want)
 
 
+FAST_KINDS = [(k, p) for k, p in AGG_KINDS if k in tfast._SUPPORTED]
+
+
+@pytest.mark.parametrize("kind,param", FAST_KINDS,
+                         ids=[f"{k}{'_' + str(p) if p else ''}" for k, p in FAST_KINDS])
+def test_fast_groupby_matches_reference(monkeypatch, kind, param):
+    """fastgroup.fast_groupby of both packages, called directly, for every
+    kind it answers (the reference without its Pallas switch)."""
+    monkeypatch.delenv("CUDF_TPU_PALLAS", raising=False)
+    df = _agg_frame(seed=9)
+    spec = [(_value_col(kind) if kind != "size" else "", kind, "out", param)]
+    raggs, taggs = _aggs(spec)
+    want = rfast.fast_groupby(ct.Table.from_pandas(df), ["g", "s"], raggs, True)
+    got = tfast.fast_groupby(tt.Table.from_pandas(df, device="cpu"), ["g", "s"],
+                             taggs, True)
+    assert want is not None and got is not None
+    assert_same(got.to_pandas(), want.to_pandas())
+
+
+@pytest.mark.parametrize("kind", ["argmin", "argmax"])
+def test_dispatch_answers_argmin_argmax_from_fast_groupby(monkeypatch, kind):
+    """argmin/argmax pass the one-hot and single-word sort lanes by and are
+    answered by fast_groupby, not by the generic engine."""
+    answered = []
+    inner = tfast.fast_groupby
+
+    def spy(*a, **k):
+        out = inner(*a, **k)
+        answered.append(out is not None)
+        return out
+
+    monkeypatch.setattr(tfast, "fast_groupby", spy)
+    df = _agg_frame(seed=10)
+    raggs, taggs = _aggs([("i", kind, "out")])
+    want = rgb.groupby_aggregate(ct.Table.from_pandas(df), ["g", "s"], raggs).to_pandas()
+    got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["g", "s"],
+                                taggs).to_pandas()
+    assert answered == [True]
+    assert_same(got, want)
+
+
 def test_entry_step_matches_reference():
     """__graft_entry__.entry(): the predicate folded into key validity, then
     _grouping + _aggregate_impl; the port runs the same step on the same

@@ -106,7 +106,8 @@ def test_groupby_low_cardinality_matches_pallas():
 
 
 @pytest.mark.parametrize("bad", ["gid_dtype", "vals_rank", "weight_shape",
-                                 "too_many_groups", "no_groups", "devices"])
+                                 "too_many_groups", "no_groups", "devices",
+                                 "accumulator_past_48kb"])
 def test_kernel_wrapper_rejects_bad_inputs(bad):
     n = 64
     gid = torch.zeros(n, dtype=torch.int32)
@@ -125,6 +126,8 @@ def test_kernel_wrapper_rejects_bad_inputs(bad):
         K = 0
     elif bad == "devices":
         vals = vals.to("meta")
+    elif bad == "accumulator_past_48kb":
+        K, vals = port.MAX_GROUPS, torch.zeros(n, 6)  # 2048 * 7 * 4 B = 56 KB
     with pytest.raises((TypeError, ValueError)):
         port._check(gid, vals, w, K)
 
