@@ -20,7 +20,20 @@ Phases (each prints a line; any failure raises and exits nonzero):
                kernel of the path must have launched;
   4. sort    — the code-sort lane on the same table: groupby l_orderkey
                (~15M groups) sum/mean/min/max/var, checked against pandas;
-               the one-hot kernel must not launch.
+               the one-hot kernel must not launch;
+  5. join    — TPC-H Q3's orders filter and lineitem join at SF10: orders
+               (15M rows) -> binary_op(o_orderdate < 1995-03-15) ->
+               apply_boolean_mask (~7.3M rows) -> join(lineitem[l_orderkey,
+               l_extendedprice], filtered, inner, ordered=False) ->
+               to_pandas, checked against a numpy searchsorted oracle as a
+               multiset; then ordered=True row for row, semi and left (null
+               where no match). Launch counts are zeroed just before and
+               read just after; the probe kernel must have launched;
+  6. join-general — filtered orders joined with lineitem as the build side
+               (~4 rows a key): the general sort lane, checked against the
+               oracle; the probe kernel must not launch;
+  7. kernels — the probe kernel against its plain version on the main
+               join's own table and words and on edge cases; times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -45,6 +58,11 @@ KEYS = ["l_returnflag", "l_linestatus"]
 # A-F, N-F, N-O, R-F (returnflag A=0 N=1 R=2, linestatus F=0 O=1)
 Q1_GROUPS = np.array([[0, 0], [1, 0], [1, 1], [2, 0]], np.int32)
 Q1_SHARES = np.array([0.2499, 0.0066, 0.4935, 0.2500])
+# o_orderdate as int32 days since 1970-01-01: TPC-H's range 1992-01-01 ..
+# 1998-08-02, and Q3's cut 1995-03-15
+DAY_FIRST, DAY_LAST, Q3_DAY = 8035, 10440, 9204
+JOIN_COLS = ["l_orderkey", "l_extendedprice", "o_orderkey", "o_orderdate",
+             "o_shippriority"]
 
 
 def log(msg: str) -> None:
@@ -114,6 +132,19 @@ def lineitem(n: int, seed: int):
         "l_linestatus": pd.arrays.IntegerArray(np.ascontiguousarray(keys[:, 1]), null_s),
         "l_extendedprice": rng.uniform(900.0, 105000.0, n).astype(np.float32),
         "l_orderkey": rng.integers(1, ORDERS + 1, n) * 4,
+    })
+
+
+def orders(n: int, seed: int):
+    """pandas orders: o_orderkey = 4·(1..n), lineitem()'s key space;
+    o_orderdate uniform int32 days; o_shippriority 0, as TPC-H has it."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    return pd.DataFrame({
+        "o_orderkey": 4 * np.arange(1, n + 1, dtype=np.int64),
+        "o_orderdate": rng.integers(DAY_FIRST, DAY_LAST + 1, n).astype(np.int32),
+        "o_shippriority": np.zeros(n, np.int32),
     })
 
 
@@ -235,6 +266,7 @@ def main_path(gpu: str, df):
     import torch
 
     from cudf_tpu_torch import AggSpec, Table, drop_nulls, groupby_aggregate
+    from cudf_tpu_torch.kernels import hashtable as ht
     from cudf_tpu_torch.kernels import onehot_groupby as k
 
     aggs = [AggSpec("l_extendedprice", "sum", "sum_price"),
@@ -243,6 +275,7 @@ def main_path(gpu: str, df):
             AggSpec("", "size", "count_order")]
     q1 = df[KEYS + ["l_extendedprice"]]
     k.groupby_sum_count.launches = 0
+    ht.probe_table.launches = 0
     t0 = time.perf_counter()
     tbl = Table.from_pandas(q1)
     torch.cuda.synchronize()
@@ -253,6 +286,8 @@ def main_path(gpu: str, df):
     launches = k.groupby_sum_count.launches
     if launches < 1:
         raise AssertionError("main path did not launch the one-hot kernel")
+    if ht.probe_table.launches:
+        raise AssertionError("the groupby path launched the probe kernel")
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     warm = groupby_aggregate(kept, KEYS, aggs)
@@ -351,6 +386,239 @@ def sort_lane(gpu: str, tbl, df) -> None:
         + device_breakdown(lambda: groupby_aggregate(t, ["l_orderkey"], aggs)))
 
 
+# ---------------------------------------------------------------- phase 5
+def join_oracle(df, od):
+    """The inner join's rows in lineitem order, by output column, and which
+    lineitem rows match: numpy searchsorted over the sorted filtered order
+    keys (queries taken in sorted order, which keeps the search in cache)."""
+    keep = od["o_orderdate"].to_numpy() < Q3_DAY
+    f = {c: od[c].to_numpy()[keep] for c in od.columns}
+    lk = df["l_orderkey"].to_numpy()
+    order = np.argsort(lk)
+    idx = np.empty(len(lk), np.int64)
+    idx[order] = np.searchsorted(f["o_orderkey"], lk[order])
+    idx = np.minimum(idx, len(f["o_orderkey"]) - 1)
+    match = f["o_orderkey"][idx] == lk
+    want = {"l_orderkey": lk[match],
+            "l_extendedprice": df["l_extendedprice"].to_numpy()[match]}
+    for c in ("o_orderkey", "o_orderdate", "o_shippriority"):
+        want[c] = f[c][idx[match]]
+    return want, match
+
+
+def assert_rows(got: dict, want: dict, what: str, as_multiset: bool) -> None:
+    """Every column exactly equal, row for row or after one sort of both
+    sides by (l_orderkey, l_extendedprice bits): rows equal on those two
+    are equal on every column, since the orders columns follow the key."""
+    n = len(want["l_orderkey"])
+    if len(got["l_orderkey"]) != n:
+        raise AssertionError(f"{what}: {len(got['l_orderkey'])} rows, oracle {n}")
+    if as_multiset:
+        def order(d):
+            return np.argsort((d["l_orderkey"].astype(np.int64) << 32)
+                              | d["l_extendedprice"].view(np.uint32))
+        go, wo = order(got), order(want)
+        got = {c: v[go] for c, v in got.items()}
+        want = {c: v[wo] for c, v in want.items()}
+    for c in want:
+        if not np.array_equal(got[c], want[c]):
+            raise AssertionError(f"{what}: column {c} differs from the oracle")
+
+
+def _columns(tbl, names) -> dict:
+    return {c: tbl[c].data[: tbl.num_rows].cpu().numpy() for c in names}
+
+
+def join_path(gpu: str, df, od, want, match):
+    import torch
+
+    from cudf_tpu_torch import Column, Table, apply_boolean_mask, binary_op, join
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.kernels import onehot_groupby as oh
+
+    li = Table({"l_orderkey": Column.from_numpy(df["l_orderkey"].to_numpy()),
+                "l_extendedprice": Column.from_numpy(df["l_extendedprice"].to_numpy())})
+    torch.cuda.synchronize()
+
+    def q3(ot):
+        filtered = apply_boolean_mask(ot, binary_op(ot["o_orderdate"], Q3_DAY, "lt"))
+        return filtered, join(li, filtered, ["l_orderkey"], ["o_orderkey"], "inner",
+                              ordered=False)
+
+    ht.probe_table.launches = 0
+    oh.groupby_sum_count.launches = 0
+    t0 = time.perf_counter()
+    ot = Table.from_pandas(od)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    filtered, out = q3(ot)
+    got = out.to_pandas()
+    t2 = time.perf_counter()
+    launches = ht.probe_table.launches
+    if launches < 1:
+        raise AssertionError("the join path did not launch the probe kernel")
+    if oh.groupby_sum_count.launches:
+        raise AssertionError("the join path launched the one-hot kernel")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    q3(ot)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t3
+    log(f"join: [{gpu}] {ORDERS} orders -> {filtered.num_rows} after o_orderdate < "
+        f"1995-03-15; {li.num_rows} lineitem rows -> {len(got)} joined rows; orders "
+        f"ingest {t1 - t0:.3f} s, filter+join+to_pandas {t2 - t1:.3f} s (first), "
+        f"filter+join warm {warm_s * 1e3:.2f} ms (host clock); probe launches {launches}")
+
+    assert_rows({c: got[c].to_numpy() for c in JOIN_COLS}, want, "inner unordered", True)
+    ordered = join(li, filtered, ["l_orderkey"], ["o_orderkey"], "inner")
+    assert_rows(_columns(ordered, JOIN_COLS), want, "inner ordered", False)
+    semi = join(li, filtered, ["l_orderkey"], ["o_orderkey"], "semi")
+    assert_rows(_columns(semi, ["l_orderkey", "l_extendedprice"]),
+                {c: want[c] for c in ("l_orderkey", "l_extendedprice")}, "semi", False)
+    left = join(li, filtered, ["l_orderkey"], ["o_orderkey"], "left")
+    if left.num_rows != li.num_rows:
+        raise AssertionError(f"left: {left.num_rows} rows, want {li.num_rows}")
+    for c in ("o_orderkey", "o_orderdate", "o_shippriority"):
+        col = left[c]
+        valid = col.validity[: li.num_rows].cpu().numpy()
+        if not np.array_equal(valid, match):
+            raise AssertionError(f"left: nulls of {c} differ from the unmatched rows")
+        if not np.array_equal(col.data[: li.num_rows].cpu().numpy()[match], want[c]):
+            raise AssertionError(f"left: column {c} differs from the oracle")
+    log(f"join: matches the numpy oracle: inner (ordered=False as a multiset, "
+        f"ordered=True row for row), semi and left (null where no match), every "
+        f"column exact; {int(match.sum())} of {len(match)} lineitem rows match")
+    log(f"join: [{gpu}] warm filter+join profile: " + device_breakdown(lambda: q3(ot)))
+    return li, filtered, launches
+
+
+# ---------------------------------------------------------------- phase 6
+def join_general(gpu: str, li, filtered, want) -> None:
+    import torch
+
+    from cudf_tpu_torch import join
+    from cudf_tpu_torch.kernels import hashtable as ht
+
+    before = ht.probe_table.launches
+
+    def run():
+        return join(filtered, li, ["o_orderkey"], ["l_orderkey"], "inner",
+                    ordered=False)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run().to_pandas()
+    first_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    if ht.probe_table.launches != before:
+        raise AssertionError("the general lane launched the probe kernel")
+    assert_rows({c: got[c].to_numpy() for c in JOIN_COLS}, want, "general inner", True)
+    log(f"join-general: [{gpu}] {filtered.num_rows} filtered orders x {li.num_rows} "
+        f"lineitem (build side, ~4 rows a key) -> {len(got)} rows, matches the "
+        f"oracle as a multiset; join+to_pandas {first_s:.3f} s (first), join warm "
+        f"{warm_s * 1e3:.2f} ms (host clock)")
+    log(f"join-general: [{gpu}] warm join profile: " + device_breakdown(run))
+
+
+# ---------------------------------------------------------------- phase 7
+def _u32(a, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(dev)
+
+
+def probe_edge_cases(ht, dev) -> int:
+    """Probe kernel vs plain version, exactly, on small tables the port's
+    build_table makes on the card (m = 16; a ragged N of 2·8192 + 77; a
+    table at 61% load with unplaced rows) and on hand-built probe chains:
+    a match at probe 15, a key absent after 16 occupied slots, a vacant
+    slot before a would-be match."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    cases = []
+    for n, m, nq in ((6, 16, 12), (2000, 16384, 2 * 8192 + 77), (20000, 32768, 20000)):
+        base = rng.choice(2**31, n, replace=False)
+        k1, k2 = _u32(base & 0xFFFF, dev), _u32(base >> 16, dev)
+        table = ht.build_table(k1, k2, torch.ones(n, dtype=torch.bool, device=dev), m)[:3]
+        pick = torch.from_numpy(rng.integers(0, n, nq)).to(dev)
+        flip = torch.from_numpy((rng.random(nq) < 0.2).astype(np.int32)).to(dev)
+        cases.append((table, k1[pick] ^ flip, k2[pick], None))
+    q1, q2 = np.uint32(0xDEADBEEF), np.uint32(12345)
+    h = int(ht._mix(_u32([q1], "cpu"), _u32([q2], "cpu"))[0])
+    for kind, fill, at, want in (("match_at_15", 15, 15, 7), ("absent_after_16", 16, 16, None),
+                                 ("vacant_before", 3, 4, None)):
+        tk1, tk2 = np.zeros(64, np.uint32), np.zeros(64, np.uint32)
+        pay = np.full(64, ht.EMPTY, np.int32)
+        for i in range(fill):
+            s = (h + i) & 63
+            tk1[s], tk2[s], pay[s] = (q1 if kind == "match_at_15" else i), i + 1, 100 + i
+        s = (h + at) & 63
+        tk1[s], tk2[s], pay[s] = q1, q2, 7
+        table = (_u32(tk1, dev), _u32(tk2, dev), torch.from_numpy(pay).to(dev))
+        cases.append((table, _u32([q1, 99], dev), _u32([q2, 98], dev),
+                      ht.EMPTY if want is None else want))
+    for table, a, b, want in cases:
+        got = ht.probe_table(*table, a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ht.probe_table_plain(*table, a, b)):
+            raise AssertionError("probe kernel disagrees with its plain version")
+        if want is not None and got[0].item() != want:
+            raise AssertionError(f"probe chain case: got {got[0].item()}, want {want}")
+    return len(cases)
+
+
+def probe_vs_plain(gpu: str, li, filtered) -> dict:
+    import torch
+
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.ops import fastjoin
+
+    dev = torch.device("cuda")
+    n_edge = probe_edge_cases(ht, dev)
+    built = fastjoin.build_hash_table([li["l_orderkey"]], [filtered["o_orderkey"]], False)
+    if built is None:
+        raise AssertionError("the main join's keys built no hash table")
+    (q1, q2), table, n_build = built
+    got = ht.probe_table(*table, q1, q2)
+    torch.cuda.synchronize()
+    want = ht.probe_table_plain(*table, q1, q2)
+    max_err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    if max_err != 0:
+        raise AssertionError("probe kernel disagrees with its plain version at the "
+                             "main join's shape")
+    log(f"kernels: hashtable_probe equals its plain version exactly on {n_edge} edge "
+        f"cases and on the main join's table and words")
+
+    ms = cuda_ms(lambda: ht.probe_table(*table, q1, q2))
+    plain_ms = cuda_ms(lambda: ht.probe_table_plain(*table, q1, q2), iters=5)
+
+    def packed(w1, w2):
+        return (w2.to(torch.int64) << 32) | (w1.to(torch.int64) & 0xFFFFFFFF)
+
+    occ = table[2] != ht.EMPTY
+    build_keys = torch.sort(packed(table[0][occ], table[1][occ])).values
+    probe_keys = packed(q1, q2)
+    library_ms = cuda_ms(lambda: torch.searchsorted(build_keys, probe_keys))
+    m, n = table[0].shape[0], q1.shape[0]
+    nbytes = 12 * m + 12 * n  # table once, two query words and the result
+    ops = 12 * n              # hash and one probe's compares, 32-bit ALU ops
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+    log(f"kernels: [{gpu}] hashtable_probe N={n} queries, m={m} slots for {n_build} "
+        f"build rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
+        f"3.35 TB/s)")
+    return {"name": "hashtable_probe", "route": "cuda",
+            "source": "cudf_tpu_torch/kernels/csrc/hashtable_probe.cu",
+            "replaces": "cudf_tpu/kernels/hashtable.py:83",
+            "launches": 0, "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / F32_FLOPS else "operations", "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
 
@@ -369,13 +637,27 @@ def main() -> int:
     n_active = int(df[KEYS].notna().all(axis=1).sum())
     from cudf_tpu_torch.utils.padding import bucket_capacity
 
-    entry = kernels_vs_plain(gpu, bucket_capacity(n_active), n_active)
-    tbl, launches = main_path(gpu, df)
-    entry["launches"] = launches
+    onehot = kernels_vs_plain(gpu, bucket_capacity(n_active), n_active)
+    tbl, onehot["launches"] = main_path(gpu, df)
     sort_lane(gpu, tbl, df)
+    del tbl
+    t0 = time.perf_counter()
+    od = orders(ORDERS, seed=1)
+    want, match = join_oracle(df, od)
+    log(f"data: [{gpu}] {ORDERS} orders and the numpy join oracle in "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    t0 = time.perf_counter()
+    li, filtered, probe_launches = join_path(gpu, df, od, want, match)
+    t1 = time.perf_counter()
+    join_general(gpu, li, filtered, want)
+    t2 = time.perf_counter()
+    probe = probe_vs_plain(gpu, li, filtered)
+    log(f"phases: [{gpu}] join {t1 - t0:.1f} s, join-general {t2 - t1:.1f} s, probe "
+        f"kernel checks {time.perf_counter() - t2:.1f} s (host clock, checks included)")
+    probe["launches"] = probe_launches
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [onehot, probe]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

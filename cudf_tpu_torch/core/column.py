@@ -168,6 +168,47 @@ class Column:
             v = _pad_to(np.asarray(v, dtype=bool), cap, dev, False)
         return cls(dt, d, v, int(spec["length"]), spec.get("dictionary"))
 
+    @classmethod
+    def from_scalar(cls, value, length: int, dtype: Optional[DType] = None,
+                    device=None) -> "Column":
+        """``length`` copies of ``value``; ``None`` gives an all-null column
+        of ``dtype``, a string a one-entry dictionary, a Python int int64."""
+        dev = resolve_device(device)
+        cap = bucket_capacity(length)
+        if value is None:
+            if dtype is None:
+                raise ValueError("an all-null column needs a dtype")
+            return cls(dtype, torch.zeros(cap, dtype=dtype.physical, device=dev),
+                       torch.zeros(cap, dtype=torch.bool, device=dev), length)
+        if isinstance(value, str):
+            return cls(dtypes.string, torch.zeros(cap, dtype=torch.int32, device=dev),
+                       None, length, dictionary=np.array([value], dtype=str))
+        if isinstance(value, (np.datetime64, np.timedelta64)):
+            return cls.from_numpy(np.full((length,), value), device=dev)
+        if dtype is None:
+            dtype = dtypes.from_numpy(np.min_scalar_type(value)
+                                      if isinstance(value, int)
+                                      else np.asarray(value).dtype)
+            if dtype.is_integer:
+                dtype = dtypes.int64
+        data = torch.full((cap,), dtype.numpy_physical.type(value).item(),
+                          dtype=dtype.physical, device=dev)
+        return cls(dtype, data, None, length)
+
+    def slice(self, offset: int, length: Optional[int] = None) -> "Column":
+        """Rows [offset, offset + length) in a buffer of their own."""
+        if length is None:
+            length = self.length - offset
+        length = max(0, min(length, self.length - offset))
+        cap = bucket_capacity(length)
+        data = torch.zeros(cap, dtype=self.data.dtype, device=self.device)
+        data[:length] = self.data[offset:offset + length]
+        v = None
+        if self.validity is not None:
+            v = torch.zeros(cap, dtype=torch.bool, device=self.device)
+            v[:length] = self.validity[offset:offset + length]
+        return Column(self.dtype, data, v, length, self.dictionary)
+
     # ---------------------------------------------------------------- export
     def _host_validity(self, n: int) -> Optional[np.ndarray]:
         if self.validity is None:

@@ -70,6 +70,10 @@ class DType:
         return self.kind == Kind.FLOAT
 
     @property
+    def is_integer(self) -> bool:
+        return self.kind in (Kind.INT, Kind.UINT)
+
+    @property
     def is_temporal(self) -> bool:
         return self.kind in (Kind.TIMESTAMP, Kind.DURATION)
 
@@ -152,3 +156,17 @@ def to_numpy(dt: DType) -> np.dtype:
     if dt.kind == Kind.FLOAT and dt.bits == 16:
         return np.dtype("float32")  # numpy lacks bfloat16; widen
     return dt.numpy_physical
+
+
+def common_dtype(a: DType, b: DType) -> DType:
+    """Numpy-style promotion between two logical dtypes."""
+    if a == b:
+        return a
+    if a.is_temporal or b.is_temporal:
+        if a.kind == b.kind:
+            if a.param == b.param:
+                return a
+            return timestamp("ns") if a.kind == Kind.TIMESTAMP else duration("ns")
+        # timestamp - timestamp is handled at the op level
+        return a if a.is_temporal else b
+    return from_numpy(np.promote_types(to_numpy(a), to_numpy(b)))

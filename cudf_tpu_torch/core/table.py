@@ -4,7 +4,7 @@ Counterpart of ``cudf_tpu/core/table.py``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -48,6 +48,9 @@ class Table:
 
     def select(self, names: Sequence[str]) -> "Table":
         return Table({n: self._columns[n] for n in names})
+
+    def slice(self, offset: int, length: Optional[int] = None) -> "Table":
+        return Table({n: c.slice(offset, length) for n, c in self._columns.items()})
 
     # ----------------------------------------------------------------- inter
     @classmethod

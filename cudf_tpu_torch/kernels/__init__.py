@@ -3,6 +3,9 @@
 * ``onehot_groupby`` — shared-memory single-pass sum/count accumulator for
   low-cardinality groupby (replaces the Pallas MXU one-hot kernel; the
   shape of libcudf's compute_single_pass_aggs.cuh).
+* ``hashtable`` — linear-probing hash table for distinct-key build sides:
+  a torch build and a one-thread-per-query probe kernel (replaces the
+  Pallas VMEM probe; the cuco::static_set of distinct_hash_join.cu).
 
 The reference keeps its Pallas kernels behind an opt-in switch for a
 TPU-only reason; here a CUDA tensor always takes the kernel, and a CPU
