@@ -7,11 +7,13 @@ Run from the repository root, with no arguments:
 
 Phases (each prints a line; any failure raises and exits nonzero):
 
-  1. build   — compile every CUDA kernel of the main path from csrc/ (nvcc,
-               sm_90a), one nvcc process per source, all started together;
+  1. build   — compile every CUDA kernel from csrc/ (nvcc, sm_90a), one nvcc
+               process per source, all started together; then launch the
+               launch-check kernel (o = 2x over f32[1024]) under a 120 s
+               watchdog and hold it exactly against its plain version;
   2. kernels — call each kernel's wrapper on card tensors (the shapes the
                main path gives it, plus edge cases) against its plain PyTorch
-               version; time kernel, plain version and one library call;
+               version; time kernel, plain version and library calls;
   3. main    — the README query at TPC-H SF10 lineitem size (60M rows):
                Table.from_pandas -> drop_nulls -> groupby_aggregate(
                [l_returnflag, l_linestatus], sum/mean/count/size of
@@ -33,7 +35,8 @@ Phases (each prints a line; any failure raises and exits nonzero):
                (~4 rows a key): the general sort lane, checked against the
                oracle; the probe kernel must not launch;
   7. kernels — the probe kernel against its plain version on the main
-               join's own table and words and on edge cases; times.
+               join's own table (slot views, no packing) and words and on
+               edge cases (both table layouts, a chain that wraps); times.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -43,8 +46,10 @@ CUDA is not available.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -53,6 +58,7 @@ ROWS = 60_000_000            # TPC-H SF10 lineitem
 ORDERS = 15_000_000          # TPC-H SF10 orders
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM published peak
 F32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
+WATCHDOG_S = 120             # benchmarks/pallas_tunnel_repro.py's watchdog
 KEYS = ["l_returnflag", "l_linestatus"]
 # TPC-H Q1's four (returnflag, linestatus) groups at SF10 and their shares:
 # A-F, N-F, N-O, R-F (returnflag A=0 N=1 R=2, linestatus F=0 O=1)
@@ -165,6 +171,47 @@ def build(gpu: str) -> None:
         f"(host clock)")
 
 
+def launch_check(gpu: str) -> dict:
+    """The launch-and-return check: one launch on f32[1024] that must come
+    back within WATCHDOG_S, exactly equal to its plain version."""
+    import torch
+
+    from cudf_tpu_torch.kernels import launch_check as lc
+
+    returned = threading.Event()
+
+    def watchdog():
+        if not returned.wait(WATCHDOG_S):
+            print(f"launch-check: the kernel launch did not return in {WATCHDOG_S} s",
+                  file=sys.stderr, flush=True)
+            os._exit(42)
+
+    threading.Thread(target=watchdog, daemon=True).start()
+    x = torch.arange(1024, dtype=torch.float32, device="cuda") - 511.5
+    lc.double.launches = 0
+    got = lc.double(x)
+    torch.cuda.synchronize()
+    returned.set()
+    launches = lc.double.launches
+    want = lc.double_plain(x)
+    if launches != 1 or not torch.equal(got, want):
+        raise AssertionError("launch-check kernel disagrees with its plain version")
+    ms = cuda_ms(lambda: lc.double(x))
+    plain_ms = cuda_ms(lambda: lc.double_plain(x))
+    library_ms = cuda_ms(lambda: torch.mul(x, 2.0))
+    nbytes = 8 * x.numel()
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, x.numel() / F32_FLOPS) * 1e3
+    log(f"launch-check: [{gpu}] o = 2x over f32[1024] returned and equals its plain "
+        f"version exactly; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mul "
+        f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms")
+    return {"name": "launch_check_double", "route": "cuda",
+            "source": "cudf_tpu_torch/kernels/csrc/launch_check.cu",
+            "replaces": "benchmarks/pallas_tunnel_repro.py:48",
+            "note": "on no engine path: the counterpart of a launch-and-return repro",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------- phase 2
 def onehot_inputs(cap: int, n: int, seed: int, device):
     """The one-hot lane's kernel arguments at the main path's shape: the
@@ -183,10 +230,10 @@ def onehot_inputs(cap: int, n: int, seed: int, device):
 
 
 def _check_onehot(k, gid, vals, weight, K, is01: bool) -> float:
-    """Kernel vs plain version on the same card tensors. f32 tile partial
-    sums reorder the additions (atomics, a different order every run), so a
+    """Kernel vs plain version on the same card tensors. The kernel sums in
+    f32 inside a tile, in another order than the plain version's f64, so a
     sum may differ by rtol 1e-5 of the group's sum of |terms|; counts of 0/1
-    weights are exact."""
+    weights are exact; a NaN stays in its group (both sides NaN there)."""
     import torch
 
     got = k.groupby_sum_count(gid, vals, weight, K)
@@ -194,8 +241,12 @@ def _check_onehot(k, gid, vals, weight, K, is01: bool) -> float:
     want = k.groupby_sum_count_plain(gid, vals, weight, K)
     scale = k.groupby_sum_count_plain(gid, vals.abs(), weight, K)
     V = vals.shape[1]
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError(f"one-hot kernel: NaN in other groups than its plain "
+                             f"version's, K={K} V={V}")
+    got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
     err = (got - want).abs()
-    bad = err[:, :V] > 1e-5 * scale[:, :V] + 1e-6
+    bad = err[:, :V] > 1e-5 * scale[:, :V].nan_to_num(0.0) + 1e-6
     if is01:
         bad = torch.cat([bad, (got[:, V] != want[:, V])[:, None]], 1)
     else:
@@ -229,11 +280,35 @@ def kernels_vs_plain(gpu: str, cap: int, n_active: int) -> dict:
                     w = torch.rand(n, device=dev, generator=gen) * 2.0
                 max_err = max(max_err, _check_onehot(k, gid, vals, w, K,
                                                      weights != "real"))
+    # the tiers' edges: K·(V+1) = 32 (registers), 33 and K = 2048 (shared
+    # memory), on bases one row past 16 B alignment (the scalar head)
+    for K, V in ((16, 1), (11, 2), (2048, 2)):
+        gid = torch.randint(-3, K + 3, (n + 1,), device=dev, generator=gen,
+                            dtype=torch.int32)[1:]
+        vals = torch.randn(n + 1, V, device=dev, generator=gen)[1:]
+        w = (torch.rand(n + 1, device=dev, generator=gen) < 0.9).float()[1:]
+        max_err = max(max_err, _check_onehot(k, gid, vals, w, K, True))
+    # a NaN in one group, in each tier: it stays there, the others stay finite
+    for K in (16, 64):
+        gid = torch.randint(0, 4, (n,), device=dev, generator=gen, dtype=torch.int32)
+        vals = torch.randn(n, 1, device=dev, generator=gen)
+        vals[int(torch.nonzero(gid == 2)[5]), 0] = float("nan")
+        got = k.groupby_sum_count(gid, vals, torch.ones(n, device=dev), K)
+        nan = got.isnan()
+        if not (bool(nan[2, 0]) and int(nan.sum()) == 1):
+            raise AssertionError(f"one-hot kernel: the NaN left its group (K={K})")
+        max_err = max(max_err, _check_onehot(k, gid, vals, torch.ones(n, device=dev), K,
+                                             True))
     gid, vals, w, K = onehot_inputs(cap, n_active, 2, dev)
     max_err = max(max_err, _check_onehot(k, gid, vals, w, K, True))
-    log(f"kernels: onehot_groupby_sum_count matches its plain version on 25 cases "
+    first = k.groupby_sum_count(gid, vals, w, K)
+    if not torch.equal(first, k.groupby_sum_count(gid, vals, w, K)):
+        raise AssertionError("one-hot kernel: two launches on the main shape differ")
+    log(f"kernels: onehot_groupby_sum_count matches its plain version on 30 cases "
         f"(K in 1/16/37/2048, V in 1/2, ragged N, 0/1, zero and real weights, "
-        f"out-of-range gids), max_abs_err={max_err}")
+        f"out-of-range gids; tier edges K(V+1) = 32/33 and K = 2048, V = 2 on "
+        f"unaligned bases; a NaN in one group in both tiers), max_abs_err={max_err}; "
+        f"two launches at the main shape give the same bits")
 
     # times at the main path's shape
     ms = cuda_ms(lambda: k.groupby_sum_count(gid, vals, w, K))
@@ -241,7 +316,11 @@ def kernels_vs_plain(gpu: str, cap: int, n_active: int) -> dict:
     idx = torch.where(gid >= 0, gid.to(torch.int64), K)
     contrib = torch.cat([vals * w[:, None] * w[:, None], (w * w)[:, None]], 1).double()
     acc = torch.zeros(K + 1, 2, dtype=torch.float64, device=dev)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, idx, contrib))
+    index_add_ms = cuda_ms(lambda: acc.index_add_(0, idx, contrib))
+    flat = (idx[:, None] * 2 + torch.arange(2, device=dev)).reshape(-1)
+    bincount_ms = cuda_ms(lambda: torch.bincount(flat, contrib.reshape(-1),
+                                                 minlength=(K + 1) * 2))
+    library_ms = min(index_add_ms, bincount_ms)
     # The kernel reads every gid, but values and weight only of rows whose
     # gid lies in [0, K): the padding past n_active (gid -1) is never read.
     V = vals.shape[1]
@@ -250,9 +329,9 @@ def kernels_vs_plain(gpu: str, cap: int, n_active: int) -> dict:
     flops = n_in * (3 * V + 2)
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
     log(f"kernels: [{gpu}] onehot_groupby_sum_count N={cap} ({n_in} rows in range) "
-        f"V={V} K={K}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
-        f"3.35 TB/s)")
+        f"V={V} K={K}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, f64 index_add_ "
+        f"{index_add_ms:.4f} ms, f64 bincount {bincount_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at 3.35 TB/s)")
     return {"name": "onehot_groupby_sum_count", "route": "cuda",
             "source": "cudf_tpu_torch/kernels/csrc/onehot_groupby.cu",
             "replaces": "cudf_tpu/kernels/onehot_groupby.py:30",
@@ -446,6 +525,7 @@ def join_path(gpu: str, df, od, want, match):
                               ordered=False)
 
     ht.probe_table.launches = 0
+    ht.probe_table.packs = 0
     oh.groupby_sum_count.launches = 0
     t0 = time.perf_counter()
     ot = Table.from_pandas(od)
@@ -459,6 +539,8 @@ def join_path(gpu: str, df, od, want, match):
         raise AssertionError("the join path did not launch the probe kernel")
     if oh.groupby_sum_count.launches:
         raise AssertionError("the join path launched the one-hot kernel")
+    if ht.probe_table.packs:
+        raise AssertionError("the join path packed its table: not build_table's slots")
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     q3(ot)
@@ -532,10 +614,11 @@ def _u32(a, dev):
 
 def probe_edge_cases(ht, dev) -> int:
     """Probe kernel vs plain version, exactly, on small tables the port's
-    build_table makes on the card (m = 16; a ragged N of 2·8192 + 77; a
-    table at 61% load with unplaced rows) and on hand-built probe chains:
-    a match at probe 15, a key absent after 16 occupied slots, a vacant
-    slot before a would-be match."""
+    build_table makes on the card (slot views: m = 16; a ragged N of
+    2·8192 + 77; a table at 61% load with unplaced rows) and on hand-built
+    probe chains as three separate arrays, which the wrapper packs: a match
+    at probe 15, a key absent after 16 occupied slots, a vacant slot before
+    a would-be match, a chain that wraps from slot m-1 to 0."""
     import torch
 
     rng = np.random.default_rng(7)
@@ -547,23 +630,30 @@ def probe_edge_cases(ht, dev) -> int:
         pick = torch.from_numpy(rng.integers(0, n, nq)).to(dev)
         flip = torch.from_numpy((rng.random(nq) < 0.2).astype(np.int32)).to(dev)
         cases.append((table, k1[pick] ^ flip, k2[pick], None))
-    q1, q2 = np.uint32(0xDEADBEEF), np.uint32(12345)
-    h = int(ht._mix(_u32([q1], "cpu"), _u32([q2], "cpu"))[0])
+    q1 = np.uint32(0xDEADBEEF)
+    cand = np.arange(12345, 12345 + 4096, dtype=np.uint32)
+    homes = ht._mix(_u32(np.full(len(cand), q1), "cpu"), _u32(cand, "cpu")).numpy() & 63
+    wrap_q2 = cand[np.flatnonzero(homes == 61)[0]]  # home slot m - 3
     for kind, fill, at, want in (("match_at_15", 15, 15, 7), ("absent_after_16", 16, 16, None),
-                                 ("vacant_before", 3, 4, None)):
+                                 ("vacant_before", 3, 4, None), ("wraps", 5, 5, 7)):
+        q2 = wrap_q2 if kind == "wraps" else np.uint32(12345)
+        h = int(ht._mix(_u32([q1], "cpu"), _u32([q2], "cpu"))[0])
         tk1, tk2 = np.zeros(64, np.uint32), np.zeros(64, np.uint32)
         pay = np.full(64, ht.EMPTY, np.int32)
         for i in range(fill):
             s = (h + i) & 63
-            tk1[s], tk2[s], pay[s] = (q1 if kind == "match_at_15" else i), i + 1, 100 + i
+            tk1[s], tk2[s], pay[s] = (q1 if kind in ("match_at_15", "wraps") else i), i + 1, 100 + i
         s = (h + at) & 63
         tk1[s], tk2[s], pay[s] = q1, q2, 7
         table = (_u32(tk1, dev), _u32(tk2, dev), torch.from_numpy(pay).to(dev))
         cases.append((table, _u32([q1, 99], dev), _u32([q2, 98], dev),
                       ht.EMPTY if want is None else want))
     for table, a, b, want in cases:
+        packs = ht.probe_table.packs
         got = ht.probe_table(*table, a, b)
         torch.cuda.synchronize()
+        if ht.probe_table.packs - packs != (table[0].stride() == (1,)):
+            raise AssertionError("probe wrapper: slot views packed, or arrays not packed")
         if not torch.equal(got, ht.probe_table_plain(*table, a, b)):
             raise AssertionError("probe kernel disagrees with its plain version")
         if want is not None and got[0].item() != want:
@@ -583,15 +673,21 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
     if built is None:
         raise AssertionError("the main join's keys built no hash table")
     (q1, q2), table, n_build = built
+    if ht.slot_tensor(*table) is None:
+        raise AssertionError("the main join's table is not in the slot layout")
+    packs = ht.probe_table.packs
     got = ht.probe_table(*table, q1, q2)
     torch.cuda.synchronize()
+    if ht.probe_table.packs != packs:
+        raise AssertionError("the main join's table was packed before the probe")
     want = ht.probe_table_plain(*table, q1, q2)
     max_err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
     if max_err != 0:
         raise AssertionError("probe kernel disagrees with its plain version at the "
                              "main join's shape")
     log(f"kernels: hashtable_probe equals its plain version exactly on {n_edge} edge "
-        f"cases and on the main join's table and words")
+        f"cases (both layouts, a chain that wraps) and on the main join's table "
+        f"(slot views, reached the kernel with no packing) and words")
 
     ms = cuda_ms(lambda: ht.probe_table(*table, q1, q2))
     plain_ms = cuda_ms(lambda: ht.probe_table_plain(*table, q1, q2), iters=5)
@@ -630,6 +726,7 @@ def main() -> int:
     gpu = card()
     t_start = time.perf_counter()
     build(gpu)
+    check = launch_check(gpu)
     t0 = time.perf_counter()
     df = lineitem(ROWS, seed=0)
     log(f"data: [{gpu}] {ROWS} lineitem rows generated in "
@@ -657,7 +754,7 @@ def main() -> int:
     probe["launches"] = probe_launches
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
-    log(json.dumps({"kernels": [onehot, probe]}))
+    log(json.dumps({"kernels": [onehot, probe, check]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,11 +1,15 @@
 """Hand-written Hopper kernels — counterparts of ``cudf_tpu/kernels/``.
 
-* ``onehot_groupby`` — shared-memory single-pass sum/count accumulator for
-  low-cardinality groupby (replaces the Pallas MXU one-hot kernel; the
-  shape of libcudf's compute_single_pass_aggs.cuh).
+* ``onehot_groupby`` — single-pass sum/count accumulator for
+  low-cardinality groupby, in registers or per-warp shared memory
+  (replaces the Pallas MXU one-hot kernel; the shape of libcudf's
+  compute_single_pass_aggs.cuh).
 * ``hashtable`` — linear-probing hash table for distinct-key build sides:
-  a torch build and a one-thread-per-query probe kernel (replaces the
-  Pallas VMEM probe; the cuco::static_set of distinct_hash_join.cu).
+  a torch build into 16 B slots and a probe kernel that reads a slot with
+  one vector load (replaces the Pallas VMEM probe; the cuco::static_set of
+  distinct_hash_join.cu).
+* ``launch_check`` — ``o = 2·x``, on no engine path: the counterpart of
+  the launch-and-return repro ``benchmarks/pallas_tunnel_repro.py``.
 
 The reference keeps its Pallas kernels behind an opt-in switch for a
 TPU-only reason; here a CUDA tensor always takes the kernel, and a CPU

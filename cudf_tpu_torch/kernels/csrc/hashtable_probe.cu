@@ -1,4 +1,4 @@
-// Hash-table probe for distinct-key build sides: one thread per query.
+// Hash-table probe for distinct-key build sides over 16 B slots.
 //
 // Replaces the Pallas TPU kernel cudf_tpu/kernels/hashtable.py:_probe_kernel
 // (called through probe_table), which holds the whole table in VMEM and
@@ -9,24 +9,32 @@
 // (payload EMPTY), and return EMPTY when nothing matches. A match that lies
 // after a vacant slot is not a match.
 //
-// The table stays in global memory: at the join's main shape it has 2^24
-// slots (~200 MB), far past the 50 MB L2, so shared memory cannot hold it.
-// Each thread reads a slot's payload first and its key words only when the
-// slot is occupied, in a grid-stride loop over the queries.
+// Layout: one int4 per slot, (tk1, tk2, payload, 0), as kernels/hashtable.py
+// build_table writes it. A probe step is one 16 B read-only vector load, so
+// a probe that ends at its home slot touches one random 32 B sector (two when
+// the chain crosses a sector), where three separate arrays cost three.
 //
-// Bound: memory. The function must read the table once (12 B a slot: two
-// u32 key words and an i32 payload), each query's two words (8 B) and
-// write its result (4 B): 12·m + 12·N bytes, ~1.0 GB at m = 2^24 and
-// N = 2^26, ~0.30 ms at the H100 SXM's 3.35 TB/s. Known weakness, left for
-// later: the three slot arrays sit apart, so one probe touches three random
-// 32 B sectors; a 16 B slot layout (tk1, tk2, payload) would need one.
+// The table stays in global memory: at the Q3 join's main shape it has 2^25
+// slots (512 MB), far past the 50 MB L2, so neither L2 nor shared memory can
+// hold it, and every probe is a dependent random read. Each thread takes
+// kQueries queries and issues the slot loads of all of them before it looks
+// at any, step by step along their chains, so a warp keeps kQueries misses in
+// flight instead of one. The grid is a grid-stride loop sized from the SM
+// count and the kernel's occupancy, read at run time.
+//
+// Bound: memory. The function must read the table once (12 B a slot: two u32
+// key words and an i32 payload), each query's two words (8 B) and write its
+// result (4 B): 12·m + 12·N bytes, 1.21 GB at m = 2^25 and N = 2^26, 0.36 ms
+// at the H100 SXM's 3.35 TB/s. What it pays beyond that is the random sector
+// per probe step: about 1.1 sectors a query at the Q3 join's 22% load.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxProbe = 16;  // MAX_PROBE of the reference
+constexpr int kQueries = 4;     // queries per thread, their loads in flight together
+constexpr int kMaxProbe = 16;   // MAX_PROBE of the reference
 constexpr int32_t kEmpty = INT32_MIN;
 
 __device__ __forceinline__ uint32_t mix(uint32_t h1, uint32_t h2) {
@@ -38,43 +46,73 @@ __device__ __forceinline__ uint32_t mix(uint32_t h1, uint32_t h2) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-probe_kernel(const uint32_t* __restrict__ tk1, const uint32_t* __restrict__ tk2,
-             const int32_t* __restrict__ payload, const uint32_t* __restrict__ q1,
+probe_kernel(const int4* __restrict__ slots, const uint32_t* __restrict__ q1,
              const uint32_t* __restrict__ q2, int32_t* __restrict__ out,
              int64_t n, uint32_t mask) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t a = q1[i];
-    const uint32_t b = q2[i];
-    const uint32_t h = mix(a, b);
-    int32_t found = kEmpty;
-    for (int p = 0; p < kMaxProbe; ++p) {
-      const uint32_t s = (h + (uint32_t)p) & mask;
-      const int32_t pay = payload[s];
-      if (pay == kEmpty) break;
-      if (tk1[s] == a && tk2[s] == b) {
-        found = pay;
-        break;
-      }
+  constexpr int64_t kChunk = (int64_t)kThreads * kQueries;
+  for (int64_t base = (int64_t)blockIdx.x * kChunk; base < n;
+       base += (int64_t)gridDim.x * kChunk) {
+    uint32_t a[kQueries], b[kQueries], h[kQueries];
+    int32_t found[kQueries];
+    bool live[kQueries];
+#pragma unroll
+    for (int j = 0; j < kQueries; ++j) {
+      const int64_t i = base + j * kThreads + threadIdx.x;  // coalesced
+      live[j] = i < n;
+      a[j] = live[j] ? __ldg(q1 + i) : 0u;
+      b[j] = live[j] ? __ldg(q2 + i) : 0u;
+      h[j] = mix(a[j], b[j]);
+      found[j] = kEmpty;
     }
-    out[i] = found;
+    for (int p = 0; p < kMaxProbe; ++p) {
+      int4 s[kQueries];
+#pragma unroll
+      for (int j = 0; j < kQueries; ++j)  // every live chain's load, before any test
+        s[j] = live[j] ? __ldg(slots + ((h[j] + (uint32_t)p) & mask))
+                       : make_int4(0, 0, kEmpty, 0);
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < kQueries; ++j) {
+        if (!live[j]) continue;
+        if (s[j].z == kEmpty) {
+          live[j] = false;
+        } else if ((uint32_t)s[j].x == a[j] && (uint32_t)s[j].y == b[j]) {
+          found[j] = s[j].z;
+          live[j] = false;
+        }
+        any |= live[j];
+      }
+      if (!any) break;
+    }
+#pragma unroll
+    for (int j = 0; j < kQueries; ++j) {
+      const int64_t i = base + j * kThreads + threadIdx.x;
+      if (i < n) out[i] = found[j];
+    }
   }
 }
 
 }  // namespace
 
-// tk1, tk2 u32[m] and payload i32[m] with m a power of two; q1, q2 u32[n];
-// out i32[n]. Launches on `stream`; returns cudaGetLastError().
-extern "C" int hashtable_probe(const void* tk1, const void* tk2,
-                               const void* payload, const void* q1,
-                               const void* q2, void* out, long long n,
-                               long long m, void* stream) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks a SM, grid-stride
+// slots int32[m, 4] row-major and 16 B aligned, (tk1, tk2, payload, pad) a
+// row, m a power of two; q1, q2 u32[n]; out i32[n]. Launches on `stream`;
+// returns the first CUDA error, or 0.
+extern "C" int hashtable_probe(const void* slots, const void* q1, const void* q2,
+                               void* out, long long n, long long m, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_kernel,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long chunk = (long long)kThreads * kQueries;
+  long long blocks = (n + chunk - 1) / chunk;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > resident) blocks = resident;
   probe_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)tk1, (const uint32_t*)tk2, (const int32_t*)payload,
-      (const uint32_t*)q1, (const uint32_t*)q2, (int32_t*)out, (int64_t)n,
-      (uint32_t)(m - 1));
+      (const int4*)slots, (const uint32_t*)q1, (const uint32_t*)q2, (int32_t*)out,
+      (int64_t)n, (uint32_t)(m - 1));
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,12 @@ the function of the reference's weighted one-hot matmul, where the weight
 enters both factors. Rows whose gid lies outside [0, K) contribute nothing.
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/onehot_groupby.cu``: shared-memory f32 accumulation per tile,
-f64 across tiles, so counts are exact at any group size). On a CPU tensor
-it runs ``groupby_sum_count_plain``, the same function in plain PyTorch,
-which is also the kernel's oracle.
+(``csrc/onehot_groupby.cu``: f32 accumulation per tile, f64 across tiles,
+so counts are exact at any group size; the same bits on every run). The
+wrapper picks its tier from K·(V+1) (``_tier``): registers up to
+``REG_SLOTS`` accumulators, else per-warp copies in shared memory. On a CPU
+tensor it runs ``groupby_sum_count_plain``, the same function in plain
+PyTorch, which is also the kernel's oracle.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import torch
 from . import load_library
 
 MAX_GROUPS = 2048            # the lane's bound: 2^tbits with tbits <= 11
-_SMEM_BYTES = 48 * 1024      # a block's default shared memory (no opt-in)
+REG_SLOTS = 32               # register tier: K·(V+1) accumulators a thread holds
+_SMEM_BYTES = 227 * 1024     # a block's shared memory on the H100, after opt-in
+_WARPS = 8                   # warps of a shared-tier block where they fit
 
 
 def groupby_sum_count_plain(gid: torch.Tensor, vals: torch.Tensor,
@@ -54,9 +58,22 @@ def _check(gid, vals, weight, n_groups):
         raise ValueError("gid, vals and weight must be contiguous")
     if not 1 <= n_groups <= MAX_GROUPS:
         raise ValueError(f"n_groups must be in [1, {MAX_GROUPS}], got {n_groups}")
-    if n_groups * (vals.shape[1] + 1) * 4 > _SMEM_BYTES:
-        raise ValueError(f"[{n_groups}, {vals.shape[1] + 1}] f32 accumulator "
-                         "exceeds a block's shared memory")
+    _tier(n_groups, vals.shape[1])
+
+
+def _tier(n_groups: int, V: int) -> int:
+    """0 for the register tier, else the warps of a shared-tier block: each
+    warp holds an f32 copy of the [K, V+1] accumulator beside the block's
+    f64 total, S·8 + warps·S·4 bytes for S = K·(V+1). Raises when not even
+    one warp's copy fits."""
+    S = n_groups * (V + 1)
+    if S <= REG_SLOTS:
+        return 0
+    warps = min(_WARPS, (_SMEM_BYTES // S - 8) // 4)
+    if warps < 1:
+        raise ValueError(f"[{n_groups}, {V + 1}] accumulator exceeds a block's "
+                         "shared memory")
+    return warps
 
 
 def groupby_sum_count(gid: torch.Tensor, vals: torch.Tensor, weight: torch.Tensor,
@@ -70,21 +87,28 @@ def groupby_sum_count(gid: torch.Tensor, vals: torch.Tensor, weight: torch.Tenso
     _check(gid, vals, weight, n_groups)
     if gid.device.type != "cuda":
         raise ValueError(f"no kernel for device {gid.device}")
-    out = torch.zeros((n_groups, vals.shape[1] + 1), dtype=torch.float64,
-                      device=gid.device)
+    V = vals.shape[1]
     n = gid.shape[0]
     if n == 0:
-        return out
+        return torch.zeros((n_groups, V + 1), dtype=torch.float64, device=gid.device)
+    warps = _tier(n_groups, V)
     lib = load_library("onehot_groupby")
-    fn = lib.onehot_groupby_sum_count
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    grid, fn = lib.onehot_groupby_blocks, lib.onehot_groupby_sum_count
+    grid.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    grid.restype = fn.restype = ctypes.c_int
+    out = torch.empty((n_groups, V + 1), dtype=torch.float64, device=gid.device)
+    blocks = ctypes.c_int(0)
     with torch.cuda.device(gid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(gid.data_ptr(), vals.data_ptr(), weight.data_ptr(),
-                 out.data_ptr(), n, vals.shape[1], n_groups, stream)
+        err = grid(n, V, n_groups, warps, ctypes.byref(blocks))
+        if err == 0:
+            partials = torch.empty(blocks.value * n_groups * (V + 1), dtype=torch.float64,
+                                   device=gid.device)
+            err = fn(gid.data_ptr(), vals.data_ptr(), weight.data_ptr(),
+                     partials.data_ptr(), out.data_ptr(), n, V, n_groups, warps,
+                     blocks.value, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"onehot_groupby_sum_count launch failed: CUDA error {err}")
     groupby_sum_count.launches += 1

@@ -103,11 +103,31 @@ def test_build_table_matches_reference(name):
         assert got == first
 
 
+@pytest.mark.parametrize("name", BUILD_CASES)
+def test_build_table_returns_columns_of_one_slot_tensor(name):
+    """tk1, tk2 and payload are columns 0-2 of one 16 B-aligned
+    int32[m+1, 4] tensor whose column 3 is 0: the probe kernel's layout."""
+    k1, k2, valid, m = _build_case(name)
+    p = port.build_table(_t(k1), _t(k2), torch.from_numpy(valid), m)
+    base = p[0]._base
+    assert base is not None and base.shape == (m + 1, 4) and base.dtype == torch.int32
+    assert base.data_ptr() % 16 == 0
+    for i in range(3):
+        assert p[i].shape == (m,) and p[i].stride() == (4,)
+        assert p[i].data_ptr() == base.data_ptr() + 4 * i
+    assert not base[:, 3].any()
+    assert torch.equal(port.slot_tensor(*p[:3]), base[:m])
+
+
 def _chain(kind):
     """A hand-built table of m = 64 slots and one query (q1, q2) whose
     probe chain is laid out by ``kind``. Returns (tables, q1, q2, want)."""
     m = 64
     q1, q2 = np.uint32(0xDEADBEEF), np.uint32(12345)
+    if kind == "wraps_past_last_slot":  # a query whose home is slot m - 3
+        cand = np.arange(12345, 12345 + 4096, dtype=np.uint32)
+        hs = np.asarray(ref._mix(jnp.full(len(cand), q1), jnp.asarray(cand)))
+        q2 = cand[np.flatnonzero((hs & (m - 1)) == m - 3)[0]]
     h = int(np.asarray(ref._mix(jnp.asarray([q1]), jnp.asarray([q2])))[0])
     tk1 = np.zeros(m, np.uint32)
     tk2 = np.zeros(m, np.uint32)
@@ -132,13 +152,21 @@ def _chain(kind):
             put(i, np.uint32(i), np.uint32(i), 100 + i)
         put(4, q1, q2, 7)  # slot 3 vacant: the search stops there
         want = port.EMPTY
+    elif kind == "wraps_past_last_slot":
+        for i in range(5):  # slots m-3 .. m-1, 0, 1
+            put(i, q1, np.uint32(i + 1), 100 + i)
+        put(5, q1, q2, 7)   # slot 2
+        want = 7
     else:
         raise KeyError(kind)
     return (tk1, tk2, pay), q1, q2, want
 
 
-@pytest.mark.parametrize("kind", ["match_at_probe_15", "absent_after_16_occupied",
-                                  "vacant_before_match"])
+CHAINS = ["match_at_probe_15", "absent_after_16_occupied", "vacant_before_match",
+          "wraps_past_last_slot"]
+
+
+@pytest.mark.parametrize("kind", CHAINS)
 def test_probe_chain_edges_match_reference(kind):
     (tk1, tk2, pay), q1, q2, want = _chain(kind)
     # the query, plus every key stored in the table, plus an absent key
@@ -210,8 +238,25 @@ def test_probe_table_matches_reference(name):
     np.testing.assert_array_equal(got.numpy(), exp)
 
 
+@pytest.mark.parametrize("name", PROBE_CASES)
+@pytest.mark.parametrize("layout", ["slots", "separate"])
+def test_probe_table_takes_both_layouts(name, layout):
+    """build_table's slot views and three separate contiguous arrays give
+    the reference's answer."""
+    k1, k2, valid, m, q1, q2 = _probe_case(name)
+    rt = ref.build_table(jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(valid), m)
+    want = np.asarray(ref.probe_table(*rt[:3], jnp.asarray(q1), jnp.asarray(q2)))
+    table = port.build_table(_t(k1), _t(k2), torch.from_numpy(valid), m)[:3]
+    if layout == "separate":
+        table = [x.contiguous() for x in table]
+        assert all(x.stride() == (1,) for x in table)
+    assert (port._check(*table, _t(q1), _t(q2)) is None) == (layout == "separate")
+    np.testing.assert_array_equal(port.probe_table(*table, _t(q1), _t(q2)).numpy(), want)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "rank", "not_pow2", "lengths", "query_lengths",
-                                 "devices", "contiguity"])
+                                 "devices", "contiguity", "wrong_offsets", "stride_3",
+                                 "unaligned_base"])
 def test_probe_wrapper_rejects_bad_inputs(bad):
     m, n = 16, 10
     t = [torch.zeros(m, dtype=torch.int32) for _ in range(2)]
@@ -232,6 +277,15 @@ def test_probe_wrapper_rejects_bad_inputs(bad):
         q[1] = q[1].to("meta")
     elif bad == "contiguity":
         q[0] = torch.zeros(2 * n, dtype=torch.int32)[::2]
+    elif bad == "wrong_offsets":  # slot columns in another order
+        slots = torch.zeros((m + 1, 4), dtype=torch.int32)
+        t, pay = [slots[:m, 1], slots[:m, 0]], slots[:m, 2]
+    elif bad == "stride_3":  # columns of an int32[m, 3] tensor
+        slots = torch.zeros((m, 3), dtype=torch.int32)
+        t, pay = [slots[:, 0], slots[:, 1]], slots[:, 2]
+    elif bad == "unaligned_base":  # stride 4, but the base 4 B past 16 B
+        slots = torch.zeros(4 * m + 8, dtype=torch.int32)[1:4 * m + 5].view(m + 1, 4)
+        t, pay = [slots[:m, 0], slots[:m, 1]], slots[:m, 2]
     with pytest.raises((TypeError, ValueError)):
         port.probe_table(*t, pay, *q)
 
@@ -261,4 +315,44 @@ def test_probe_kernel_matches_plain_on_card(name):
     got = port.probe_table(*table, *q)
     torch.cuda.synchronize()
     assert port.probe_table.launches == before + 1
+    assert torch.equal(got, port.probe_table_plain(*table, *q))
+
+
+def _slot_views(tk1, tk2, pay, device="cpu"):
+    """Hand-built table words as columns 0-2 of a 16 B slot tensor."""
+    slots = torch.zeros((len(tk1) + 1, 4), dtype=torch.int32)
+    slots[:-1, 0], slots[:-1, 1], slots[:-1, 2] = _t(tk1), _t(tk2), torch.from_numpy(pay)
+    slots = slots.to(device)
+    return [slots[:-1, i] for i in range(3)]
+
+
+@pytest.mark.parametrize("kind", CHAINS)
+def test_hand_built_chains_in_slot_layout(kind):
+    (tk1, tk2, pay), q1, q2, want = _chain(kind)
+    table = _slot_views(tk1, tk2, pay)
+    assert port.slot_tensor(*table) is not None
+    got = port.probe_table(*table, _t([q1, 99]), _t([q2, 98]))
+    assert got.tolist() == [want, port.EMPTY]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CHAINS)
+@pytest.mark.parametrize("layout", ["slots", "separate"])
+def test_probe_kernel_chains_and_layouts_on_card(kind, layout):
+    """Hand-built chains, the wrap past slot m-1 among them, in both
+    layouts: the slot views reach the kernel as they are, separate arrays
+    are packed once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    (tk1, tk2, pay), q1, q2, want = _chain(kind)
+    if layout == "slots":
+        table = _slot_views(tk1, tk2, pay, "cuda")
+    else:
+        table = [_t(tk1).cuda(), _t(tk2).cuda(), torch.from_numpy(pay).cuda()]
+    q = [_t([q1, 99]).cuda(), _t([q2, 98]).cuda()]
+    packs = port.probe_table.packs
+    got = port.probe_table(*table, *q)
+    torch.cuda.synchronize()
+    assert port.probe_table.packs == packs + (layout == "separate")
+    assert got.tolist() == [want, port.EMPTY]
     assert torch.equal(got, port.probe_table_plain(*table, *q))

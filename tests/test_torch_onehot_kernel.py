@@ -127,9 +127,51 @@ def test_kernel_wrapper_rejects_bad_inputs(bad):
     elif bad == "devices":
         vals = vals.to("meta")
     elif bad == "accumulator_past_48kb":
-        K, vals = port.MAX_GROUPS, torch.zeros(n, 6)  # 2048 * 7 * 4 B = 56 KB
+        # 2048 * 10 * 4 B = 80 KB of f32 per warp copy; with the f64 total,
+        # 240 KB for one warp: past a block's 227 KB, so neither tier holds it
+        K, vals = port.MAX_GROUPS, torch.zeros(n, 9)
     with pytest.raises((TypeError, ValueError)):
         port._check(gid, vals, w, K)
+
+
+# (K, V, warps): the register tier (0) up to K·(V+1) = 32, the shared tier
+# past it, with fewer warps a block where 8 copies of [K, V+1] do not fit
+TIERS = [(16, 1, 0), (32, 0, 0), (1, 31, 0), (11, 2, 8), (33, 0, 8), (2048, 1, 8),
+         (2048, 2, 7), (2048, 8, 1)]
+
+
+@pytest.mark.parametrize("K,V,warps", TIERS)
+def test_wrapper_picks_the_tier_from_the_accumulator_size(K, V, warps):
+    assert port._tier(K, V) == warps
+    port._check(torch.zeros(8, dtype=torch.int32), torch.zeros(8, V), torch.ones(8), K)
+
+
+@pytest.mark.parametrize("K,V", [(2048, 9), (1024, 19), (1, 19370)])
+def test_wrapper_refuses_only_what_neither_tier_holds(K, V):
+    with pytest.raises(ValueError, match="shared memory"):
+        port._tier(K, V)
+    with pytest.raises(ValueError, match="shared memory"):
+        port._check(torch.zeros(8, dtype=torch.int32), torch.zeros(8, V), torch.ones(8), K)
+
+
+def _nan_case():
+    """Four groups, one NaN value in group 2; ragged N."""
+    rng = np.random.default_rng(11)
+    n, K = 4099, 4
+    gid = rng.integers(0, K, n).astype(np.int32)
+    vals = rng.standard_normal((n, 1)).astype(np.float32)
+    vals[np.flatnonzero(gid == 2)[3], 0] = np.nan
+    return gid, vals, np.ones(n, np.float32), K
+
+
+def test_plain_version_keeps_nan_in_its_group():
+    gid, vals, w, K = _nan_case()
+    got = port.groupby_sum_count(torch.from_numpy(gid), torch.from_numpy(vals),
+                                 torch.from_numpy(w), K).numpy()
+    assert np.isnan(got[2, 0]) and np.isfinite(np.delete(got[:, 0], 2)).all()
+    exp = np.array([vals[gid == k, 0].astype(np.float64).sum() for k in range(K)])
+    np.testing.assert_allclose(np.delete(got[:, 0], 2), np.delete(exp, 2), rtol=1e-12)
+    np.testing.assert_array_equal(got[:, 1], np.bincount(gid, minlength=K))
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
@@ -157,7 +199,45 @@ def test_kernel_matches_plain_on_card(name):
     assert port.groupby_sum_count.launches == before + 1
     want = port.groupby_sum_count_plain(*args, K)
     V = vals.shape[1]
-    # atomics add in another order on every run: f32 tile sums, rtol 1e-5
+    # f32 tile sums add in another order than the plain version's f64: rtol 1e-5
     torch.testing.assert_close(got[:, :V], want[:, :V], rtol=1e-5, atol=1e-4)
     if is01:
         assert torch.equal(got[:, V], want[:, V])
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,V,warps", TIERS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_both_tiers_match_plain_on_card_and_repeat_bit_for_bit(K, V, warps, offset):
+    """Each tier at its edges, on 16 B-aligned bases and on bases one row
+    off (the scalar head); two launches give the same bits."""
+    _card()
+    rng = np.random.default_rng(K * 100 + V)
+    n = 3 * 8192 + 77 + offset
+    gid = torch.from_numpy(rng.integers(-2, K + 2, n).astype(np.int32)).cuda()[offset:]
+    vals = torch.from_numpy(rng.standard_normal((n, V)).astype(np.float32)).cuda()[offset:]
+    w = torch.from_numpy((rng.random(n) < 0.9).astype(np.float32)).cuda()[offset:]
+    got = port.groupby_sum_count(gid, vals, w, K)
+    again = port.groupby_sum_count(gid, vals, w, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = port.groupby_sum_count_plain(gid, vals, w, K)
+    scale = port.groupby_sum_count_plain(gid, vals.abs(), w, K)
+    assert bool(((got[:, :V] - want[:, :V]).abs() <= 1e-5 * scale[:, :V] + 1e-6).all())
+    assert torch.equal(got[:, V], want[:, V])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 64])  # register tier, shared tier
+def test_kernel_keeps_nan_in_its_group_on_card(K):
+    _card()
+    gid, vals, w, _ = _nan_case()
+    got = port.groupby_sum_count(*[torch.from_numpy(a).cuda() for a in (gid, vals, w)], K)
+    got = got.cpu().numpy()
+    assert np.isnan(got[2, 0])
+    assert np.isfinite(np.delete(got[:, 0], 2)).all() and np.isfinite(got[:, 1]).all()
