@@ -32,11 +32,23 @@ Phases (each prints a line; any failure raises and exits nonzero):
                where no match). Launch counts are zeroed just before and
                read just after; the probe kernel must have launched;
   6. join-general — filtered orders joined with lineitem as the build side
-               (~4 rows a key): the general sort lane, checked against the
-               oracle; the probe kernel must not launch;
+               (~4 rows a key), ordered=True (with ordered=False the swap
+               would build on the filtered orders): the general sort lane,
+               checked against the oracle; the probe kernel must not launch;
   7. kernels — the probe kernel against its plain version on the main
                join's own table (slot views, no packing) and words and on
-               edge cases (both table layouts, a chain that wraps); times.
+               edge cases (both table layouts, a chain that wraps); times;
+  8. sort    — bench.py's sort shape at 60M rows: sort_by_key([k1 f64 with
+               2% NaN, k2 f32]) carrying v, against a stable numpy lexsort,
+               every column exact; first and warm times, device profile;
+  9. tpch    — TPC-H q1, q3, q5 and q6 (benchmarks/tpch.py's plans, copied
+               here) through cudf_tpu_torch.expr.ir.execute at SF10
+               (gen_tables(60M): lineitem 60M, orders 15M, customer 1.5M,
+               supplier 150K rows), each against a pandas oracle
+               (assert_frame_equal rtol 1e-6); first and warm times, the
+               per-node profile of execute_with_profile and the device
+               profile; launch counts are zeroed before the queries and read
+               after, and q3 and q5 must launch the probe kernel.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -53,6 +65,7 @@ import threading
 import time
 
 import numpy as np
+import pandas as pd
 
 ROWS = 60_000_000            # TPC-H SF10 lineitem
 ORDERS = 15_000_000          # TPC-H SF10 orders
@@ -98,6 +111,36 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 2000) -> float:
+    """Mean host time of fn() in microseconds, the device left to run
+    behind it (what a launch costs the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ctypes_us(iters: int = 20000) -> float:
+    """Mean time of one ctypes call into a kernel library, on an entry point
+    that launches nothing (the one-hot kernel's grid size)."""
+    import ctypes
+
+    from cudf_tpu_torch.kernels import entry
+
+    fn, blocks = entry("onehot_groupby", "onehot_groupby_blocks"), ctypes.c_int(0)
+    ref = ctypes.byref(blocks)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(1024, 1, 16, 0, ref)
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
 def device_breakdown(fn, top: int = 6) -> str:
     """Device time of one fn() call by kernel, from torch.profiler (CUPTI):
     the ``top`` kernels, their share of the summed kernel time, and the
@@ -107,27 +150,30 @@ def device_breakdown(fn, top: int = 6) -> str:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    span = f"; CUDA-event span of the call {start.elapsed_time(end):.3f} ms"
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kern)
     if busy == 0:
-        return "profiler saw no device time (not measured)"
+        return "profiler saw no device time (not measured)" + span
     kern.sort(key=lambda e: -e.self_device_time_total)
     parts = [f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms "
              f"({100 * e.self_device_time_total / busy:.0f}%)" for e in kern[:top]]
     return (f"kernels {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
-            f"(device busy {100 * busy / wall_us:.0f}%): " + "; ".join(parts))
+            f"(device busy {100 * busy / wall_us:.0f}%{span}): " + "; ".join(parts))
 
 
 def lineitem(n: int, seed: int):
     """pandas lineitem slice: Q1 keys with 2% null keys, f32 prices."""
-    import pandas as pd
-
     rng = np.random.default_rng(seed)
     g = rng.choice(len(Q1_SHARES), n, p=Q1_SHARES / Q1_SHARES.sum())
     keys = Q1_GROUPS[g]
@@ -144,14 +190,155 @@ def lineitem(n: int, seed: int):
 def orders(n: int, seed: int):
     """pandas orders: o_orderkey = 4·(1..n), lineitem()'s key space;
     o_orderdate uniform int32 days; o_shippriority 0, as TPC-H has it."""
-    import pandas as pd
-
     rng = np.random.default_rng(seed)
     return pd.DataFrame({
         "o_orderkey": 4 * np.arange(1, n + 1, dtype=np.int64),
         "o_orderdate": rng.integers(DAY_FIRST, DAY_LAST + 1, n).astype(np.int32),
         "o_shippriority": np.zeros(n, np.int32),
     })
+
+
+# ------------------------------------------------ TPC-H tables and plans
+# benchmarks/tpch.py's generator and plan builders, copied as they are (this
+# script imports nothing of benchmarks/); tests/test_torch_tpch.py holds the
+# copies equal to the originals.
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+
+
+def gen_tables(n_lineitem: int, seed=0):
+    """dbgen-lite: lineitem/orders/customer/supplier/nation/region."""
+    rng = np.random.default_rng(seed)
+    n_orders = max(n_lineitem // 4, 10)
+    n_cust = max(n_orders // 10, 10)
+    n_supp = max(n_lineitem // 400, 5)
+    n_nation = 25
+
+    def dates(n, lo="1992-01-01", days=2556):
+        return pd.Timestamp(lo) + pd.to_timedelta(rng.integers(0, days, n), unit="D")
+
+    lineitem = pd.DataFrame({
+        "l_orderkey": rng.integers(0, n_orders, n_lineitem),
+        "l_suppkey": rng.integers(0, n_supp, n_lineitem),
+        "l_quantity": rng.integers(1, 51, n_lineitem).astype(np.float64),
+        "l_extendedprice": rng.uniform(900, 105000, n_lineitem).round(2),
+        "l_discount": rng.integers(0, 11, n_lineitem) / 100.0,
+        "l_tax": rng.integers(0, 9, n_lineitem) / 100.0,
+        "l_returnflag": rng.choice(["A", "N", "R"], n_lineitem),
+        "l_linestatus": rng.choice(["O", "F"], n_lineitem),
+        "l_shipdate": dates(n_lineitem),
+    })
+    orders = pd.DataFrame({
+        "o_orderkey": np.arange(n_orders),
+        "o_custkey": rng.integers(0, n_cust, n_orders),
+        "o_orderdate": dates(n_orders),
+        "o_shippriority": np.zeros(n_orders, np.int64),
+    })
+    customer = pd.DataFrame({
+        "c_custkey": np.arange(n_cust),
+        "c_mktsegment": rng.choice(SEGMENTS, n_cust),
+        "c_nationkey": rng.integers(0, n_nation, n_cust),
+    })
+    supplier = pd.DataFrame({
+        "s_suppkey": np.arange(n_supp),
+        "s_nationkey": rng.integers(0, n_nation, n_supp),
+    })
+    nation = pd.DataFrame({
+        "n_nationkey": np.arange(n_nation),
+        "n_name": [f"NATION_{i:02d}" for i in range(n_nation)],
+        "n_regionkey": rng.integers(0, 5, n_nation),
+    })
+    region = pd.DataFrame({
+        "r_regionkey": np.arange(5),
+        "r_name": REGIONS,
+    })
+    return dict(lineitem=lineitem, orders=orders, customer=customer,
+                supplier=supplier, nation=nation, region=region)
+
+
+def build_q1(T, E, IR, col):
+    cutoff = np.datetime64("1998-09-02")
+    return IR.Sort(("l_returnflag", "l_linestatus"), (False, False), (True, True), children=(
+        IR.GroupBy(
+            ("l_returnflag", "l_linestatus"),
+            (E.NamedExpr("sum_qty", col("l_quantity").sum()),
+             E.NamedExpr("sum_base_price", col("l_extendedprice").sum()),
+             E.NamedExpr("sum_disc_price", (col("l_extendedprice") * (1 - col("l_discount"))).sum()),
+             E.NamedExpr("sum_charge", (col("l_extendedprice") * (1 - col("l_discount")) * (1 + col("l_tax"))).sum()),
+             E.NamedExpr("avg_qty", col("l_quantity").mean()),
+             E.NamedExpr("avg_price", col("l_extendedprice").mean()),
+             E.NamedExpr("avg_disc", col("l_discount").mean()),
+             E.NamedExpr("count_order", E.Len())),
+            children=(IR.Filter(col("l_shipdate") <= E.Literal(cutoff),
+                                children=(T("lineitem"),)),),
+        ),))
+
+
+def build_q3(T, E, IR, col):
+    cutoff = np.datetime64("1995-03-15")
+    return IR.Slice(0, 10, children=(
+        IR.Sort(("revenue",), (True,), (True,), children=(
+            IR.GroupBy(
+                ("o_orderkey", "o_shippriority"),
+                (E.NamedExpr("revenue", (col("l_extendedprice") * (1 - col("l_discount"))).sum()),),
+                children=(
+                    IR.Join(("o_orderkey",), ("l_orderkey",), "inner", children=(
+                        IR.Join(("c_custkey",), ("o_custkey",), "inner", children=(
+                            IR.Filter(col("c_mktsegment") == E.lit("BUILDING"),
+                                      children=(T("customer"),)),
+                            IR.Filter(col("o_orderdate") < E.Literal(cutoff),
+                                      children=(T("orders"),)),
+                        )),
+                        IR.Filter(col("l_shipdate") > E.Literal(cutoff),
+                                  children=(T("lineitem"),)),
+                    )),
+                ),),
+        )),))
+
+
+def build_q5(T, E, IR, col):
+    lo = np.datetime64("1994-01-01")
+    hi = np.datetime64("1995-01-01")
+    return IR.Sort(("revenue",), (True,), (True,), children=(
+        IR.GroupBy(
+            ("n_name",),
+            (E.NamedExpr("revenue", (col("l_extendedprice") * (1 - col("l_discount"))).sum()),),
+            children=(
+                IR.Join(("s_suppkey", "s_nationkey"), ("l_suppkey", "c_nationkey"), "inner", children=(
+                    IR.Join(("n_nationkey",), ("s_nationkey",), "inner", children=(
+                        IR.Join(("r_regionkey",), ("n_regionkey",), "inner", children=(
+                            IR.Filter(col("r_name") == E.lit("ASIA"), children=(T("region"),)),
+                            T("nation"),
+                        )),
+                        T("supplier"),
+                    )),
+                    IR.HStack((E.NamedExpr("c_nationkey", col("c_nationkey")),), children=(
+                        IR.Join(("o_orderkey",), ("l_orderkey",), "inner", children=(
+                            IR.Join(("c_custkey",), ("o_custkey",), "inner", children=(
+                                T("customer"),
+                                IR.Filter((col("o_orderdate") >= E.Literal(lo)) & (col("o_orderdate") < E.Literal(hi)),
+                                          children=(T("orders"),)),
+                            )),
+                            T("lineitem"),
+                        )),
+                    )),
+                )),
+            ),),
+    ))
+
+
+def build_q6(T, E, IR, col):
+    lo = np.datetime64("1994-01-01")
+    hi = np.datetime64("1995-01-01")
+    return IR.GroupBy(
+        (), (E.NamedExpr("revenue", (col("l_extendedprice") * col("l_discount")).sum()),),
+        children=(
+            IR.Filter(
+                (col("l_shipdate") >= E.Literal(lo)) & (col("l_shipdate") < E.Literal(hi))
+                & (col("l_discount") >= 0.05) & (col("l_discount") <= 0.07)
+                & (col("l_quantity") < 24.0),
+                children=(T("lineitem"),)),
+        ),)
 
 
 # ---------------------------------------------------------------- phase 1
@@ -177,6 +364,7 @@ def launch_check(gpu: str) -> dict:
     import torch
 
     from cudf_tpu_torch.kernels import launch_check as lc
+    from cudf_tpu_torch.kernels import stream_of
 
     returned = threading.Event()
 
@@ -204,6 +392,13 @@ def launch_check(gpu: str) -> dict:
     log(f"launch-check: [{gpu}] o = 2x over f32[1024] returned and equals its plain "
         f"version exactly; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mul "
         f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms")
+    log(f"launch-check: [{gpu}] host time a call (mean of 2000, no synchronize): "
+        f"double {host_us(lambda: lc.double(x)):.2f} us, torch.mul "
+        f"{host_us(lambda: torch.mul(x, 2.0)):.2f} us; the ctypes call alone (a host-only "
+        f"entry point, onehot_groupby_blocks) {ctypes_us():.2f} us; the current stream's "
+        f"handle by torch.cuda.current_stream().cuda_stream "
+        f"{host_us(lambda: torch.cuda.current_stream().cuda_stream):.2f} us, by "
+        f"kernels.stream_of {host_us(lambda: stream_of(x.device)):.2f} us")
     return {"name": "launch_check_double", "route": "cuda",
             "source": "cudf_tpu_torch/kernels/csrc/launch_check.cu",
             "replaces": "benchmarks/pallas_tunnel_repro.py:48",
@@ -584,8 +779,11 @@ def join_general(gpu: str, li, filtered, want) -> None:
     before = ht.probe_table.launches
 
     def run():
+        # ordered=True: with ordered=False the swap would build on the
+        # smaller, distinct side (filtered orders) and take the hash lane;
+        # both lanes give left-row order, so the work is the same
         return join(filtered, li, ["o_orderkey"], ["l_orderkey"], "inner",
-                    ordered=False)
+                    ordered=True)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -715,6 +913,177 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
             >= ops / F32_FLOPS else "operations", "library_ms": library_ms}
 
 
+# ---------------------------------------------------------------- phase 8
+def sort_phase(gpu: str) -> None:
+    """bench.py's sort shape at SF10 size: sort_by_key([k1, k2]) against a
+    stable numpy lexsort (NaN last, as the port orders it)."""
+    import torch
+
+    from cudf_tpu_torch import Table
+    from cudf_tpu_torch.ops.sorting import sort_by_key
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    k1 = rng.integers(0, 100_000, ROWS).astype(np.float64)
+    k1[rng.choice(ROWS, ROWS // 50, replace=False)] = np.nan  # ~2% NaN keys
+    df = pd.DataFrame({"k1": k1, "k2": rng.normal(size=ROWS).astype(np.float32),
+                       "v": rng.normal(size=ROWS).astype(np.float32)})
+    order = np.lexsort((df["k2"].to_numpy(), k1))  # stable: k1, then k2
+    data_s = time.perf_counter() - t0
+    tbl = Table.from_pandas(df)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sort_by_key(tbl, ["k1", "k2"])
+    got = {c: out[c].data[: out.num_rows].cpu().numpy() for c in ("k1", "k2", "v")}
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sort_by_key(tbl, ["k1", "k2"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for c in ("k1", "k2", "v"):
+        if not np.array_equal(got[c], df[c].to_numpy()[order], equal_nan=True):
+            raise AssertionError(f"sort: column {c} differs from the stable numpy lexsort")
+    log(f"sort: [{gpu}] sort_by_key([k1, k2]) over {ROWS} rows (k1 f64 with "
+        f"{int(np.isnan(k1).sum())} NaN, k2 f32, v f32) equals the stable numpy lexsort, "
+        f"every column exact; sort+copy to host {first_s:.3f} s (first), sort warm "
+        f"{warm_s * 1e3:.2f} ms (host clock); data and oracle {data_s:.1f} s")
+    log(f"sort: [{gpu}] warm sort profile: "
+        + device_breakdown(lambda: sort_by_key(tbl, ["k1", "k2"])))
+
+
+# ---------------------------------------------------------------- phase 9
+BUILDERS = {"q1": build_q1, "q3": build_q3, "q5": build_q5, "q6": build_q6}
+
+
+def tpch_oracles(t) -> dict:
+    """pandas answers of q1, q3, q5 and q6 (benchmarks/tpch.py's oracles,
+    with q1's derived columns computed once before the groupby instead of
+    per group)."""
+    li = t["lineitem"]
+    q1 = li[li.l_shipdate <= pd.Timestamp("1998-09-02")]
+    disc_price = q1.l_extendedprice * (1 - q1.l_discount)
+    q1 = q1.assign(disc_price=disc_price, charge=disc_price * (1 + q1.l_tax))
+    g = q1.groupby(["l_returnflag", "l_linestatus"], as_index=False).agg(
+        sum_qty=("l_quantity", "sum"),
+        sum_base_price=("l_extendedprice", "sum"),
+        sum_disc_price=("disc_price", "sum"),
+        sum_charge=("charge", "sum"),
+        avg_qty=("l_quantity", "mean"),
+        avg_price=("l_extendedprice", "mean"),
+        avg_disc=("l_discount", "mean"),
+        count_order=("l_quantity", "size"),
+    ).sort_values(["l_returnflag", "l_linestatus"]).reset_index(drop=True)
+    g["count_order"] = g["count_order"].astype("int64")
+    out = {"q1": g}
+
+    c, o = t["customer"], t["orders"]
+    c3 = c[c.c_mktsegment == "BUILDING"]
+    o3 = o[o.o_orderdate < pd.Timestamp("1995-03-15")]
+    l3 = li[li.l_shipdate > pd.Timestamp("1995-03-15")]
+    m = c3.merge(o3, left_on="c_custkey", right_on="o_custkey").merge(
+        l3, left_on="o_orderkey", right_on="l_orderkey")
+    m["revenue"] = m.l_extendedprice * (1 - m.l_discount)
+    out["q3"] = (m.groupby(["o_orderkey", "o_shippriority"], as_index=False)
+                 .agg(revenue=("revenue", "sum"))
+                 .sort_values("revenue", ascending=False, kind="stable")
+                 .head(10).reset_index(drop=True))
+
+    r, n, s = t["region"], t["nation"], t["supplier"]
+    r = r[r.r_name == "ASIA"]
+    o5 = o[(o.o_orderdate >= pd.Timestamp("1994-01-01"))
+           & (o.o_orderdate < pd.Timestamp("1995-01-01"))]
+    m = (c.merge(o5, left_on="c_custkey", right_on="o_custkey")
+         .merge(li, left_on="o_orderkey", right_on="l_orderkey"))
+    sn = s.merge(n, left_on="s_nationkey", right_on="n_nationkey").merge(
+        r, left_on="n_regionkey", right_on="r_regionkey")
+    m = sn.merge(m, left_on=["s_suppkey", "s_nationkey"],
+                 right_on=["l_suppkey", "c_nationkey"])
+    m["revenue"] = m.l_extendedprice * (1 - m.l_discount)
+    out["q5"] = (m.groupby("n_name", as_index=False).agg(revenue=("revenue", "sum"))
+                 .sort_values("revenue", ascending=False, kind="stable")
+                 .reset_index(drop=True))
+
+    m = li[(li.l_shipdate >= pd.Timestamp("1994-01-01"))
+           & (li.l_shipdate < pd.Timestamp("1995-01-01"))
+           & (li.l_discount >= 0.05) & (li.l_discount <= 0.07) & (li.l_quantity < 24.0)]
+    out["q6"] = pd.DataFrame({"revenue": [(m.l_extendedprice * m.l_discount).sum()]})
+    return out
+
+
+def _profile_line(profile) -> str:
+    return "; ".join(f"{name} {s * 1e3:.2f} ms ({rows} rows)" for name, s, rows in profile)
+
+
+def tpch_phase(gpu: str) -> int:
+    """TPC-H q1, q3, q5 and q6 through the IR executor at SF10
+    (benchmarks/tpch.py's gen_tables(60M)), each against pandas. Returns
+    the probe kernel's launches in the queries' first and warm runs."""
+    import torch
+
+    from cudf_tpu_torch import Table
+    from cudf_tpu_torch.expr import expressions as E
+    from cudf_tpu_torch.expr import ir as IR
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.kernels import onehot_groupby as oh
+
+    t0 = time.perf_counter()
+    host = gen_tables(ROWS)
+    t1 = time.perf_counter()
+    dev = {k: Table.from_pandas(v) for k, v in host.items()}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"tpch: [{gpu}] gen_tables({ROWS}) {t1 - t0:.1f} s, ingest of "
+        + ", ".join(f"{k} {len(v)}" for k, v in host.items())
+        + f" rows {t2 - t1:.1f} s (host clock)")
+
+    def T(name):
+        return IR.DataFrameScan(dev[name])
+
+    plans = {q: build(T, E, IR, E.col) for q, build in BUILDERS.items()}
+    runs = {}
+    ht.probe_table.launches = 0
+    oh.groupby_sum_count.launches = 0
+    for q, plan in plans.items():
+        before = ht.probe_table.launches
+        t0 = time.perf_counter()
+        out = IR.execute(plan).to_pandas()
+        first_s = time.perf_counter() - t0
+        launches = ht.probe_table.launches - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        IR.execute(plan)
+        torch.cuda.synchronize()
+        runs[q] = (out, first_s, time.perf_counter() - t0, launches)
+    probe_launches = ht.probe_table.launches
+    for q in ("q3", "q5"):
+        if runs[q][3] < 1:
+            raise AssertionError(f"tpch {q}: the joins did not launch the probe kernel")
+    if oh.groupby_sum_count.launches:
+        raise AssertionError("tpch: the f64 groupbys launched the one-hot kernel")
+
+    for q, plan in plans.items():
+        out, first_s, warm_s, launches = runs[q]
+        _, profile = IR.execute_with_profile(plan)
+        log(f"tpch {q}: [{gpu}] {len(out)} rows; execute+to_pandas {first_s * 1e3:.2f} ms "
+            f"(first), execute warm {warm_s * 1e3:.2f} ms (host clock); probe launches "
+            f"{launches} in the first run")
+        log(f"tpch {q}: [{gpu}] per-node profile (synchronized): " + _profile_line(profile))
+        log(f"tpch {q}: [{gpu}] warm profile: "
+            + device_breakdown(lambda: IR.execute(plan)))
+    del dev, plans
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    want = tpch_oracles(host)
+    for q, exp in want.items():
+        got = runs[q][0]
+        pd.testing.assert_frame_equal(got[exp.columns], exp, rtol=1e-6, check_dtype=False)
+    log(f"tpch: q1, q3, q5 and q6 match pandas (assert_frame_equal rtol 1e-6: keys, "
+        f"counts and row order exact); pandas oracles {time.perf_counter() - t0:.1f} s "
+        f"(host clock)")
+    return probe_launches
+
+
 def main() -> int:
     import torch
 
@@ -749,9 +1118,17 @@ def main() -> int:
     join_general(gpu, li, filtered, want)
     t2 = time.perf_counter()
     probe = probe_vs_plain(gpu, li, filtered)
+    t3 = time.perf_counter()
     log(f"phases: [{gpu}] join {t1 - t0:.1f} s, join-general {t2 - t1:.1f} s, probe "
-        f"kernel checks {time.perf_counter() - t2:.1f} s (host clock, checks included)")
+        f"kernel checks {t3 - t2:.1f} s (host clock, checks included)")
     probe["launches"] = probe_launches
+    del df, od, want, match, li, filtered  # the README and join frames
+    torch.cuda.empty_cache()
+    sort_phase(gpu)
+    t4 = time.perf_counter()
+    probe["tpch_launches"] = tpch_phase(gpu)
+    log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {time.perf_counter() - t4:.1f} s "
+        f"(host clock, data and oracles included)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

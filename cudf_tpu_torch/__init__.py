@@ -8,9 +8,10 @@ This package imports neither jax nor anything of ``cudf_tpu``.
 Ported so far: the columnar core, stats and row codes, the sort primitive,
 gather and concatenate, null/mask compaction and ``distinct``,
 groupby-aggregate with its one-hot, code-sort and generic lanes
-(``ops/groupby.py``), casts and binary ops for predicates, and equi-joins
-with the hash-table lane for distinct build sides and the general sort
-lane (``ops/join.py``).
+(``ops/groupby.py``), the unary and binary ops, reductions and scans,
+sorting, search and merge, equi-joins with the hash-table lane for
+distinct build sides and the general sort lane (``ops/join.py``), and the
+expression/IR executor (``expr/``), which runs TPC-H q1, q3, q5 and q6.
 """
 from .core import dtypes  # noqa: F401
 from .core.column import Column  # noqa: F401

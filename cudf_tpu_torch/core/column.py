@@ -41,6 +41,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def scalar_dtype(value) -> DType:
+    """The dtype a non-null scalar takes as a column: a string ``string``,
+    a Python int int64, a bool bool, a float float64, a numpy scalar its
+    own dtype (integers widened to int64)."""
+    if isinstance(value, str):
+        return dtypes.string
+    if isinstance(value, (np.datetime64, np.timedelta64)):
+        return dtypes.from_numpy(value.dtype)
+    dtype = dtypes.from_numpy(np.min_scalar_type(value) if isinstance(value, int)
+                              else np.asarray(value).dtype)
+    return dtypes.int64 if dtype.is_integer else dtype
+
+
 def _pad_to(arr: np.ndarray, capacity: int, device, fill=0) -> torch.Tensor:
     """Host array -> padded device tensor with one host-to-device copy."""
     arr = np.ascontiguousarray(arr)
@@ -140,11 +153,25 @@ class Column:
         if arr.dtype.kind == "O" and any(
                 isinstance(x, (list, tuple, np.ndarray)) for x in arr[:64]):
             raise NotImplementedError("list-valued columns are not ported yet")
+        import pandas as pd
+
         n = len(arr)
-        isnull = np.array([x is None or (isinstance(x, float) and np.isnan(x))
-                           for x in arr], dtype=bool)
-        vals = np.where(isnull, "", arr.astype(object))
-        uniq, codes = np.unique(vals.astype(str), return_inverse=True)
+        # a null is None or a float NaN; pd.isna finds the candidates in one
+        # pass, and only those are looked at one by one
+        isnull = pd.isna(arr) if arr.dtype.kind == "O" else np.zeros(n, bool)
+        cand = np.flatnonzero(isnull)
+        isnull[cand] = [x is None or isinstance(x, float) for x in arr[cand]]
+        vals = arr.astype(object)
+        vals[isnull] = ""
+        other = cand[~isnull[cand]]  # NA-likes that are values (pd.NA -> "<NA>")
+        vals[other] = [str(x) for x in vals[other]]
+        # hash-factorize, then sort the (few) distinct values into the
+        # dictionary and remap: the codes and dictionary of np.unique over
+        # every value's str, at a fraction of its sort
+        first, seen = pd.factorize(vals, use_na_sentinel=False)
+        uniq, remap = np.unique(np.asarray(seen, dtype=object).astype(str),
+                                return_inverse=True)
+        codes = remap.reshape(-1)[first]
         cap = bucket_capacity(n)
         if validity is not None:
             isnull = isnull | ~np.asarray(validity, dtype=bool)
@@ -186,11 +213,7 @@ class Column:
         if isinstance(value, (np.datetime64, np.timedelta64)):
             return cls.from_numpy(np.full((length,), value), device=dev)
         if dtype is None:
-            dtype = dtypes.from_numpy(np.min_scalar_type(value)
-                                      if isinstance(value, int)
-                                      else np.asarray(value).dtype)
-            if dtype.is_integer:
-                dtype = dtypes.int64
+            dtype = scalar_dtype(value)
         data = torch.full((cap,), dtype.numpy_physical.type(value).item(),
                           dtype=dtype.physical, device=dev)
         return cls(dtype, data, None, length)

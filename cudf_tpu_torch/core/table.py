@@ -33,8 +33,15 @@ class Table:
             return c.length
         return 0
 
+    @property
+    def num_columns(self) -> int:
+        return len(self._columns)
+
     def __len__(self) -> int:
         return self.num_rows
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._columns
 
     def __getitem__(self, name: str) -> Column:
         return self._columns[name]
@@ -48,6 +55,20 @@ class Table:
 
     def select(self, names: Sequence[str]) -> "Table":
         return Table({n: self._columns[n] for n in names})
+
+    def drop(self, names: Sequence[str]) -> "Table":
+        drop = set(names)
+        return Table({n: c for n, c in self._columns.items() if n not in drop})
+
+    def with_column(self, name: str, col: Column) -> "Table":
+        """Add ``col`` as ``name``, or replace the column of that name in
+        its place."""
+        cols = dict(self._columns)
+        cols[name] = col
+        return Table(cols)
+
+    def rename(self, mapping: Dict[str, str]) -> "Table":
+        return Table({mapping.get(n, n): c for n, c in self._columns.items()})
 
     def slice(self, offset: int, length: Optional[int] = None) -> "Table":
         return Table({n: c.slice(offset, length) for n, c in self._columns.items()})
@@ -87,6 +108,24 @@ class Table:
                 cols[str(name)] = Column.from_numpy(
                     vals, validity=~isnull if isnull.any() else None,
                     device=dev)
+        return cls(cols)
+
+    @classmethod
+    def from_pydict(cls, d: Dict[str, object], device=None) -> "Table":
+        """Columns from a dict of Columns or sequences; ``None`` in an
+        object sequence is a null."""
+        dev = resolve_device(device)
+        cols = {}
+        for k, v in d.items():
+            if isinstance(v, Column):
+                cols[k] = v
+                continue
+            arr = np.asarray(v)
+            validity = None
+            if arr.dtype == object:
+                valid = np.array([x is not None for x in v], dtype=bool)
+                validity = None if valid.all() else valid
+            cols[k] = Column.from_numpy(arr, validity, device=dev)
         return cls(cols)
 
     @classmethod

@@ -17,10 +17,14 @@ tensor takes the kernel's plain PyTorch version beside it.
 
 Each CUDA source under ``csrc/`` is compiled on first use by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, keyed by the
-source's hash in ``build/`` (git-ignored), and loaded with ctypes.
+source's hash in ``build/`` (git-ignored), and loaded with ctypes. Each C
+entry point's prototype is set once, when the library is loaded
+(``PROTOTYPES``), and the bound function is cached (``entry``): a launch
+pays one ctypes call, not a prototype rebuild.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,12 +32,28 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
+# -cudart=shared: launch through the CUDA runtime torch has already loaded,
+# not a second, static copy of it in each library (nvcc's default), whose
+# launches reached the device later than torch's own
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-cudart=shared"]
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (argtypes, restype) of every C entry point, by source
+PROTOTYPES = {
+    "launch_check": {"launch_check_double": ([_P, _P, _LL, _P], _I)},
+    "hashtable_probe": {"hashtable_probe": ([_P] * 4 + [_LL, _LL, _P], _I)},
+    "onehot_groupby": {
+        "onehot_groupby_blocks": ([_LL, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "onehot_groupby_sum_count": ([_P] * 5 + [_LL, _I, _I, _I, _I, _P], _I)},
+}
 
 _LIBS: dict = {}
+_ENTRIES: dict = {}  # (source, entry point) -> bound ctypes function
 
 
 def _nvcc() -> str:
@@ -80,10 +100,42 @@ def build_all(names) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (once per source version) and load ``csrc/<name>.cu``."""
+    """Build (once per source version) and load ``csrc/<name>.cu``, binding
+    the prototypes of its entry points."""
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_target(name)))
+        for fn_name, (argtypes, restype) in PROTOTYPES.get(name, {}).items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, restype
+            _ENTRIES[(name, fn_name)] = fn
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, fn_name: str):
+    """The bound C entry point ``fn_name`` of ``csrc/<name>.cu``."""
+    fn = _ENTRIES.get((name, fn_name))
+    if fn is None:
+        load_library(name)
+        fn = _ENTRIES[(name, fn_name)]
+    return fn
+
+
+def on_device(dev: torch.device):
+    """Make ``dev`` the current CUDA device for a launch; no context switch
+    when it already is."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_of(dev: torch.device) -> int:
+    """The raw ``cudaStream_t`` of ``dev``'s current stream, read as torch's
+    own generated kernels read it (``torch._inductor``'s
+    ``get_raw_stream``): ``torch.cuda.current_stream().cuda_stream`` first
+    builds a Python ``Stream`` object, which costs a launch several times
+    what the ctypes call does (``chip_smoke.py``'s launch check times both)."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if dev.index is None else dev.index)

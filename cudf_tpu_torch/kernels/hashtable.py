@@ -27,11 +27,9 @@ for bit.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import load_library
+from . import entry, on_device, stream_of
 
 MAX_PROBE = 16
 EMPTY = -2147483648  # vacant-slot payload sentinel (INT32_MIN)
@@ -169,14 +167,10 @@ def probe_table(tk1: torch.Tensor, tk2: torch.Tensor, payload: torch.Tensor,
     if slots is None:  # separate arrays: one layout copy into slots
         slots = torch.stack([tk1, tk2, payload, torch.zeros_like(tk1)], 1)
         probe_table.packs += 1
-    fn = load_library("hashtable_probe").hashtable_probe
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q1.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    fn = entry("hashtable_probe", "hashtable_probe")
+    with on_device(q1.device):
         err = fn(slots.data_ptr(), q1.data_ptr(), q2.data_ptr(), out.data_ptr(), n,
-                 tk1.shape[0], stream)
+                 tk1.shape[0], stream_of(q1.device))
     if err != 0:
         raise RuntimeError(f"hashtable_probe launch failed: CUDA error {err}")
     probe_table.launches += 1

@@ -8,11 +8,9 @@ runs ``double_plain``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import load_library
+from . import entry, on_device, stream_of
 
 
 def double_plain(x: torch.Tensor) -> torch.Tensor:
@@ -24,19 +22,17 @@ def double(x: torch.Tensor) -> torch.Tensor:
     """f32[n] -> f32[n], each element times 2."""
     if x.dtype != torch.float32 or x.ndim != 1 or not x.is_contiguous():
         raise TypeError(f"x must be contiguous float32[n], got {x.dtype}{list(x.shape)}")
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return double_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = load_library("launch_check").launch_check_double
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                 torch.cuda.current_stream().cuda_stream)
+    fn = entry("launch_check", "launch_check_double")
+    with on_device(dev):
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(dev))
     if err != 0:
         raise RuntimeError(f"launch_check_double launch failed: CUDA error {err}")
     double.launches += 1

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from . import load_library
+from . import entry, on_device, stream_of
 
 MAX_GROUPS = 2048            # the lane's bound: 2^tbits with tbits <= 11
 REG_SLOTS = 32               # register tier: K·(V+1) accumulators a thread holds
@@ -92,23 +92,18 @@ def groupby_sum_count(gid: torch.Tensor, vals: torch.Tensor, weight: torch.Tenso
     if n == 0:
         return torch.zeros((n_groups, V + 1), dtype=torch.float64, device=gid.device)
     warps = _tier(n_groups, V)
-    lib = load_library("onehot_groupby")
-    grid, fn = lib.onehot_groupby_blocks, lib.onehot_groupby_sum_count
-    grid.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.POINTER(ctypes.c_int)]
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    grid.restype = fn.restype = ctypes.c_int
+    grid = entry("onehot_groupby", "onehot_groupby_blocks")
+    fn = entry("onehot_groupby", "onehot_groupby_sum_count")
     out = torch.empty((n_groups, V + 1), dtype=torch.float64, device=gid.device)
     blocks = ctypes.c_int(0)
-    with torch.cuda.device(gid.device):
+    with on_device(gid.device):
         err = grid(n, V, n_groups, warps, ctypes.byref(blocks))
         if err == 0:
             partials = torch.empty(blocks.value * n_groups * (V + 1), dtype=torch.float64,
                                    device=gid.device)
             err = fn(gid.data_ptr(), vals.data_ptr(), weight.data_ptr(),
                      partials.data_ptr(), out.data_ptr(), n, V, n_groups, warps,
-                     blocks.value, torch.cuda.current_stream().cuda_stream)
+                     blocks.value, stream_of(gid.device))
     if err != 0:
         raise RuntimeError(f"onehot_groupby_sum_count launch failed: CUDA error {err}")
     groupby_sum_count.launches += 1

@@ -72,3 +72,41 @@ def concatenate(cols: Sequence[Column]) -> Column:
 def concatenate_tables(tables: Sequence[Table]) -> Table:
     names = tables[0].names
     return Table({n: concatenate([t[n] for t in tables]) for n in names})
+
+
+def copy_if_else(lhs: Column, rhs, cond: Column) -> Column:
+    """cudf::copy_if_else (cpp/src/copying/copy.cu): lhs where cond else
+    rhs; a null condition takes rhs. ``rhs`` may be a Column or a scalar;
+    a None scalar, or a NaN one against a non-float column, gives nulls.
+    The output has lhs's dtype."""
+    import numpy as np
+
+    from .strings import unify_dictionaries
+
+    c = cond.data.to(torch.bool)
+    if cond.validity is not None:
+        c = c & cond.validity
+    null_rhs = rhs is None or (isinstance(rhs, float) and np.isnan(rhs)
+                               and not lhs.dtype.is_floating)
+    if isinstance(rhs, Column):
+        if lhs.dtype.is_string:
+            lhs, rhs = unify_dictionaries([lhs, rhs])
+        rdata, rv = rhs.data.to(lhs.data.dtype), rhs.validity
+    elif null_rhs:
+        rdata = torch.zeros((), dtype=lhs.data.dtype, device=lhs.device)
+        rv = torch.zeros(lhs.capacity, dtype=torch.bool, device=lhs.device)
+    else:
+        if lhs.dtype.is_string:
+            lhs, _ = unify_dictionaries([lhs, Column.from_scalar(str(rhs), 1,
+                                                                    device=lhs.device)])
+            rhs = int(np.searchsorted(lhs.dictionary, str(rhs)))
+        rdata = torch.tensor(lhs.dtype.numpy_physical.type(rhs).item(),
+                             dtype=lhs.data.dtype, device=lhs.device)
+        rv = None
+    data = torch.where(c, lhs.data, rdata)
+    validity = None
+    if lhs.validity is not None or rv is not None:
+        ones = torch.ones(c.shape, dtype=torch.bool, device=c.device)
+        validity = torch.where(c, ones if lhs.validity is None else lhs.validity,
+                               ones if rv is None else rv)
+    return Column(lhs.dtype, data, validity, lhs.length, lhs.dictionary)

@@ -22,7 +22,11 @@ is the hash table of ``kernels/hashtable.py``:
   6. inner: the matched left rows in left-row order, each right column
      gathered at the payload; left: every left row passes through as it
      is, the right columns gathered and null where there is no match;
-     semi/anti: the match mask, then ``apply_boolean_mask``.
+     semi/anti: the match mask, then ``apply_boolean_mask``;
+  7. ``build_left`` (an unordered inner join whose left side is the
+     smaller, ``join``'s swap): steps 2-5 with the sides exchanged, then
+     the matched right rows in right-row order, each left column gathered
+     at the payload; the output's columns are those of step 6.
 
 The lane choice depends only on the data. A CUDA tensor always takes the
 probe kernel; nothing is caught.
@@ -80,24 +84,62 @@ def build_hash_table(lcols, rcols, nulls_equal: bool):
     return None
 
 
+def _match(probe: Table, build: Table, probe_on: Sequence[str],
+           build_on: Sequence[str], nulls_equal: bool, distinct: bool):
+    """Steps 1-5 with ``build`` as the build side: (hit, matched) for each
+    probe row, or None when the lane does not apply (with ``distinct``,
+    also when a build key repeats)."""
+    from .join import _promote_keys
+
+    pcols, bcols = _promote_keys(probe, probe_on, build, build_on)
+    built = build_hash_table(pcols, bcols, nulls_equal)
+    if built is None:
+        return None
+    p_words, table, n_build = built
+    if distinct and int((table[2] != ht.EMPTY).sum().item()) != n_build:
+        return None  # duplicate build keys: the general lane expands them
+    hit = ht.probe_table(*table, *p_words)
+    return hit, (hit >= 0) & _active(pcols, nulls_equal)
+
+
+def _gather_rows(tbl: Table, rows: torch.Tensor, n_out: int) -> dict:
+    idx = torch.zeros(bucket_capacity(max(n_out, 1)), dtype=torch.int64,
+                      device=rows.device)
+    idx[:n_out] = rows
+    return {n: gather(tbl[n], idx, n_out) for n in tbl.names}
+
+
 def try_fast_join(left: Table, right: Table, left_on: Sequence[str],
                   right_on: Sequence[str], how: str, nulls_equal: bool,
-                  suffixes: Tuple[str, str]) -> Optional[Table]:
-    """Hash-table join for distinct build sides; None when it does not apply."""
-    from .join import _materialize, _promote_keys
+                  suffixes: Tuple[str, str], build_left: bool = False) -> Optional[Table]:
+    """Hash-table join for distinct build sides; None when it does not apply.
+
+    ``build_left`` (inner joins only) builds on the left side and probes
+    with the right: the output has the same columns, in right-row order."""
+    from .join import _materialize
     from .stream_compaction import apply_boolean_mask
 
     if how not in ("inner", "left", "semi", "anti"):
         return None
-    lcols, rcols = _promote_keys(left, left_on, right, right_on)
-    built = build_hash_table(lcols, rcols, nulls_equal)
-    if built is None:
+    if build_left:
+        if how != "inner":
+            raise ValueError(f"only an inner join builds on its left side, not {how!r}")
+        found = _match(right, left, right_on, left_on, nulls_equal, True)
+        if found is None:
+            return None
+        hit, matched = found
+        rows = torch.nonzero(matched).squeeze(1)
+        n_out = rows.numel()
+        left_cols = _gather_rows(left, hit[rows], n_out)
+        right_idx = torch.full((bucket_capacity(max(n_out, 1)),), -1, dtype=torch.int64,
+                               device=rows.device)
+        right_idx[:n_out] = rows
+        return _materialize(left_cols, right, list(left_on), list(right_on), right_idx,
+                            n_out, how, suffixes)
+    found = _match(left, right, left_on, right_on, nulls_equal, how in ("inner", "left"))
+    if found is None:
         return None
-    l_words, table, n_build = built
-    if how in ("inner", "left") and int((table[2] != ht.EMPTY).sum().item()) != n_build:
-        return None  # duplicate build keys: the general lane expands them
-    hit = ht.probe_table(*table, *l_words)
-    matched = (hit >= 0) & _active(lcols, nulls_equal)
+    hit, matched = found
 
     if how in ("semi", "anti"):
         keep = ~matched if how == "anti" else matched
@@ -114,11 +156,9 @@ def try_fast_join(left: Table, right: Table, left_on: Sequence[str],
             left_cols = {n: left[n] for n in left.names}  # every row matched
             right_idx = hit
         else:
-            out_cap = bucket_capacity(max(n_out, 1))
-            left_idx = torch.zeros(out_cap, dtype=torch.int64, device=hit.device)
-            left_idx[:n_out] = rows
-            right_idx = torch.full((out_cap,), -1, dtype=torch.int32, device=hit.device)
+            right_idx = torch.full((bucket_capacity(max(n_out, 1)),), -1,
+                                   dtype=torch.int32, device=hit.device)
             right_idx[:n_out] = hit[rows]
-            left_cols = {n: gather(left[n], left_idx, n_out) for n in left.names}
+            left_cols = _gather_rows(left, rows, n_out)
     return _materialize(left_cols, right, list(left_on), list(right_on), right_idx,
                         n_out, how, suffixes)

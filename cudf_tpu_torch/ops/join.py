@@ -3,6 +3,12 @@
 
 Dispatch, in order:
 
+  0. the swap: an inner join with ``ordered=False`` whose right side has
+     more active rows than its left tries the hash-table lane with the
+     LEFT side as the build side (``try_fast_join(..., build_left=True)``;
+     libcudf's join.cu builds on the smaller table, the reference swaps
+     at its join.py:1217-1242); its rows come in right-row order, its
+     columns as in the unswapped join. When that lane refuses, 1 follows;
   1. ``fastjoin.try_fast_join`` — the hash-table lane with the probe
      kernel, for inner/left joins whose build (right) side is distinct
      and for every semi/anti join, when the keys pack into 64 bits;
@@ -14,9 +20,9 @@ Dispatch, in order:
      ``_expand`` builds the (left, right) gather maps. It handles any key
      width, duplicates on both sides and ``nulls_equal``.
 
-Both lanes give rows in left-row order, and within one left row in
-right-row order; ``ordered=False`` (libcudf's unordered contract) is
-accepted and changes nothing. Null keys match only under
+Lanes 1 and 2 give rows in left-row order, and within one left row in
+right-row order; ``ordered=False`` (libcudf's unordered contract) only
+lets the swap run. The choice depends only on the data. Null keys match only under
 ``nulls_equal=True`` (cuDF null_equality); NaN equals NaN and -0 equals
 +0 (cuDF nan_equality::ALL_EQUAL).
 
@@ -184,8 +190,8 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
     """Equi-join two tables. how: inner/left/right/semi/anti/full.
 
     ``ordered=False`` relaxes the output order to libcudf's contract (only
-    the multiset of rows is promised); both lanes here give left-row order
-    either way."""
+    the multiset of rows is promised), which lets an inner join build on
+    its smaller side; ``ordered=True`` gives left-row order."""
     from .fastjoin import try_fast_join
     from .stream_compaction import apply_boolean_mask
 
@@ -202,7 +208,15 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
     if how == "full":
         return _full_join(left, right, left_on, right_on, nulls_equal, suffixes)
 
-    fast = try_fast_join(left, right, left_on, right_on, how, nulls_equal, suffixes)
+    fast = None
+    if how == "inner" and not ordered and \
+            _n_active(right, right_on, nulls_equal) > _n_active(left, left_on, nulls_equal):
+        # the swap: the smaller side builds (libcudf's join.cu, the
+        # reference's join.py:1217-1242)
+        fast = try_fast_join(left, right, left_on, right_on, how, nulls_equal, suffixes,
+                             build_left=True)
+    if fast is None:
+        fast = try_fast_join(left, right, left_on, right_on, how, nulls_equal, suffixes)
     if fast is not None:
         return fast
 
@@ -218,6 +232,19 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
     left_cols = {n: gather(left[n], left_idx, n_out) for n in left.names}
     return _materialize(left_cols, right, left_on, right_on, right_idx, n_out, how,
                         suffixes)
+
+
+def _n_active(tbl: Table, on: Sequence[str], nulls_equal: bool) -> int:
+    """Rows that can match: in bounds and, unless ``nulls_equal``, with
+    every key valid."""
+    cols = [tbl[n] for n in on]
+    if nulls_equal or all(c.validity is None for c in cols):
+        return tbl.num_rows
+    act = cols[0].bounds_mask()
+    for c in cols:
+        if c.validity is not None:
+            act &= c.validity
+    return int(act.sum().item())
 
 
 def _right_payload(rnames, left_on, right_on) -> List[str]:

@@ -285,3 +285,47 @@ def test_prefix_scans_match_reference(scan):
     want = np.asarray(getattr(rsort, scan)(jnp.asarray(x)))
     got = getattr(tsort, scan)(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["nulls_and_empty", "one_letter", "all_null", "empty",
+                                  "mixed_objects"])
+def test_string_ingest_keeps_the_sorted_dictionary_and_codes(case):
+    """Ingest factorizes, then sorts the distinct values into the dictionary:
+    the dictionary, codes and nulls of np.unique over every value's str (the
+    ingest it replaced), with None and NaN as nulls and "" a value."""
+    rng = np.random.default_rng(len(case))
+    arr = {
+        "nulls_and_empty": np.array(["pear", "", None, "fig", np.nan, "", "apple", "fig"],
+                                    object)[rng.integers(0, 8, 500)],
+        "one_letter": rng.choice(["A", "N", "R"], 1000),
+        "all_null": np.array([None, np.nan, None], object),
+        "empty": np.array([], object),
+        "mixed_objects": np.array(["1", 1, "b", pd.NA, np.float32("nan"), None, 2.5], object),
+    }[case]
+    isnull = np.array([x is None or (isinstance(x, float) and np.isnan(x)) for x in arr],
+                      dtype=bool)
+    vals = np.where(isnull, "", arr.astype(object))
+    want_dict, want_codes = np.unique(vals.astype(str), return_inverse=True)
+    col = TColumn.from_numpy(arr, device="cpu")
+    np.testing.assert_array_equal(col.dictionary, want_dict)
+    np.testing.assert_array_equal(col.data[: len(arr)].numpy(), want_codes.reshape(-1))
+    got_null = (np.zeros(len(arr), bool) if col.validity is None
+                else ~col.validity[: len(arr)].numpy())
+    np.testing.assert_array_equal(got_null, isnull)
+
+
+def test_table_methods_match_reference():
+    """with_column, drop, rename, num_columns, __contains__ and from_pydict."""
+    d = {"a": [1, 2, 3], "s": ["x", None, "y"], "f": np.array([0.5, np.nan, 2.0])}
+    rt, pt = ct.Table.from_pydict(d), tt.Table.from_pydict(d, device="cpu")
+    pd.testing.assert_frame_equal(pt.to_pandas(), rt.to_pandas())
+    assert pt.num_columns == rt.num_columns == 3
+    assert ("s" in pt, "z" in pt) == ("s" in rt, "z" in rt) == (True, False)
+    for r, p in ((rt.drop(["s"]), pt.drop(["s"])),
+                 (rt.rename({"a": "b"}), pt.rename({"a": "b"})),
+                 (rt.with_column("a", rt["f"]), pt.with_column("a", pt["f"])),
+                 (rt.with_column("g", rt["a"]), pt.with_column("g", pt["a"]))):
+        assert p.names == r.names
+        pd.testing.assert_frame_equal(p.to_pandas(), r.to_pandas())
+    mixed = tt.Table.from_pydict({"c": pt["a"], "n": [4, 5, 6]}, device="cpu")
+    assert mixed["c"] is pt["a"] and mixed.names == ["c", "n"]

@@ -289,3 +289,93 @@ def test_build_grows_past_long_probe_chains(monkeypatch):
     assert len(sizes) > 1 and sizes[0][0] == tht.table_size_for(len(dim))
     assert sizes[-1][1] and not any(placed for _, placed in sizes[:-1])
     assert [m for m, _ in sizes] == [sizes[0][0] << i for i in range(len(sizes))]
+
+
+def _swap_case(name):
+    """(left, right, left_on, right_on, nulls_equal): the left side distinct
+    and smaller than the right, as the dimension side of TPC-H's plans."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "orders_lineitem":
+        ldf, rdf, lon, ron, ne, _ = _case("orders_lineitem")
+        return ldf, rdf, lon, ron, ne
+    if name == "suffixes":  # payload names on both sides, one shared key name
+        return (pd.DataFrame({"k": np.arange(40), "x": np.arange(40) * 1.5,
+                              "s": np.array(["a", "b"], object)[np.arange(40) % 2]}),
+                pd.DataFrame({"k": rng.integers(0, 60, 300), "x": rng.normal(size=300),
+                              "w": np.arange(300)}),
+                ["k"], ["k"], False)
+    if name == "nullable_keys":  # null keys on both sides never match
+        return (pd.DataFrame({"lk": _nullable(np.arange(30), np.arange(30) % 7 == 0),
+                              "v": np.arange(30)}),
+                pd.DataFrame({"rk": _nullable(rng.integers(0, 35, 200), rng.random(200) < 0.1),
+                              "w": rng.normal(size=200)}),
+                ["lk"], ["rk"], False)
+    if name == "two_keys_promoted":  # q5's two-key join, int32 against int64
+        s = np.arange(50)
+        return (pd.DataFrame({"s_suppkey": s, "s_nationkey": (s % 5).astype(np.int32)}),
+                pd.DataFrame({"l_suppkey": rng.integers(0, 60, 400),
+                              "c_nationkey": rng.integers(0, 5, 400),
+                              "rev": rng.normal(size=400)}),
+                ["s_suppkey", "s_nationkey"], ["l_suppkey", "c_nationkey"], False)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["orders_lineitem", "suffixes", "nullable_keys",
+                                  "two_keys_promoted"])
+def test_swapped_inner_join_equals_the_general_lane(monkeypatch, name):
+    """An unordered inner join whose left side is distinct and smaller builds
+    on the left (the swap): the same columns in the same order, suffixes
+    included, and the same rows as the general lane and the reference, as
+    a multiset."""
+    from cudf_tpu_torch.ops import fastjoin as tfast
+
+    ldf, rdf, lon, ron, ne = _swap_case(name)
+    ldf = ldf.assign(lid=np.arange(len(ldf)))
+    rdf = rdf.assign(rid=np.arange(len(rdf)))
+    (rl, rr), (pl, pr) = _tables(ldf, rdf)
+    builds = []
+    match = tfast._match
+    monkeypatch.setattr(tfast, "_match", lambda probe, build, *a: builds.append(
+        build is pl) or match(probe, build, *a))
+    general = Spy(monkeypatch, tjoin, "_probe")
+    got = tt.join(pl, pr, lon, ron, "inner", ne, ordered=False).to_pandas()
+    assert builds == [True] and general.calls == 0
+    monkeypatch.setattr(tfast, "try_fast_join", lambda *a, **k: None)
+    want = tt.join(pl, pr, lon, ron, "inner", ne, ordered=False).to_pandas()
+    assert general.calls == 1
+    ref = r_join(rl, rr, lon, ron, "inner", ne, ordered=False).to_pandas()
+    assert list(got.columns) == list(want.columns) == list(ref.columns)
+    for other in (want, ref):
+        assert_frames_equal(got.sort_values(["lid", "rid"]).reset_index(drop=True),
+                            other.sort_values(["lid", "rid"]).reset_index(drop=True))
+
+
+def test_duplicates_on_both_sides_still_reach_the_general_lane(monkeypatch):
+    ldf, rdf, lon, ron, ne, _ = _case("non_distinct_both")
+    ldf = ldf.iloc[:200]  # the left side smaller: the swap is tried first
+    (rl, rr), (pl, pr) = _tables(ldf, rdf)
+    probe = Spy(monkeypatch, tht, "probe_table")
+    general = Spy(monkeypatch, tjoin, "_probe")
+    got = tt.join(pl, pr, lon, ron, "inner", ne, ordered=False).to_pandas()
+    assert probe.calls == 0 and general.calls == 1
+    want = r_join(rl, rr, lon, ron, "inner", ne, ordered=False).to_pandas()
+    cols = list(want.columns)
+    assert_frames_equal(got.sort_values(cols).reset_index(drop=True),
+                        want.sort_values(cols).reset_index(drop=True))
+
+
+@pytest.mark.parametrize("name", ["orders_lineitem", "suffixes"])
+def test_ordered_join_never_swaps(monkeypatch, name):
+    """ordered=True keeps left-row order: no build on the left side, rows
+    equal to the reference's row for row."""
+    from cudf_tpu_torch.ops import fastjoin as tfast
+
+    ldf, rdf, lon, ron, ne = _swap_case(name)
+    (rl, rr), (pl, pr) = _tables(ldf, rdf)
+    calls = []
+    fast = tfast.try_fast_join
+    monkeypatch.setattr(tfast, "try_fast_join", lambda *a, **k: calls.append(
+        k.get("build_left", False)) or fast(*a, **k))
+    got = tt.join(pl, pr, lon, ron, "inner", ne, ordered=True).to_pandas()
+    assert calls == [False]
+    assert_frames_equal(got, r_join(rl, rr, lon, ron, "inner", ne).to_pandas())
