@@ -20,9 +20,9 @@ Phases (each prints a line; any failure raises and exits nonzero):
                l_extendedprice) -> to_pandas, checked against pandas; launch
                counts are zeroed just before and read just after, and every
                kernel of the path must have launched;
-  4. sort    — the code-sort lane on the same table: groupby l_orderkey
-               (~15M groups) sum/mean/min/max/var, checked against pandas;
-               the one-hot kernel must not launch;
+  4. sort    — the code-sort lane on the first 16M rows (CUT_ROWS) of the
+               same table: groupby l_orderkey sum/mean/min/max/var, checked
+               against pandas; the one-hot kernel must not launch;
   5. join    — TPC-H Q3's orders filter and lineitem join at SF10: orders
                (15M rows) -> binary_op(o_orderdate < 1995-03-15) ->
                apply_boolean_mask (~7.3M rows) -> join(lineitem[l_orderkey,
@@ -31,10 +31,11 @@ Phases (each prints a line; any failure raises and exits nonzero):
                multiset; then ordered=True row for row, semi and left (null
                where no match). Launch counts are zeroed just before and
                read just after; the probe kernel must have launched;
-  6. join-general — filtered orders joined with lineitem as the build side
-               (~4 rows a key), ordered=True (with ordered=False the swap
-               would build on the filtered orders): the general sort lane,
-               checked against the oracle; the probe kernel must not launch;
+  6. join-general — filtered orders joined with the first 16M lineitem rows
+               (CUT_ROWS) as the build side (~1 row a key), ordered=True
+               (with ordered=False the swap would build on the filtered
+               orders): the general sort lane, checked against the oracle;
+               the probe kernel must not launch;
   7. kernels — the probe kernel against its plain version on the main
                join's own table (slot views, no packing) and words and on
                edge cases (both table layouts, a chain that wraps); times;
@@ -48,7 +49,26 @@ Phases (each prints a line; any failure raises and exits nonzero):
                (assert_frame_equal rtol 1e-6); first and warm times, the
                per-node profile of execute_with_profile and the device
                profile; launch counts are zeroed before the queries and read
-               after, and q3 and q5 must launch the probe kernel.
+               after, and q3 and q5 must launch the probe kernel. Then the
+               datetime checks on l_shipdate (60M rows): extract of year,
+               month, day, weekday, day_of_year and microsecond and truncate
+               to M and Y against pandas .dt exactly (weekday ISO, pandas + 1),
+               and one IR plan summing l_extendedprice by .dt.year() against
+               pandas (rtol 1e-6);
+ 10. strings — bench.py's high-cardinality keys (regex_hc, tokens_hc) at 16M
+               rows from a pool of 8M "url/{i:09x}/page" values: contains with
+               bench.py's regex and a selective one, startswith, count_tokens,
+               len_strings and extract_re, each row exactly equal to an oracle
+               computed on the pool with Python re or numpy; the regexes, the
+               extract and count_tokens must take their device lanes (their
+               launch counters); first and warm times, device profile;
+ 11. io      — parquet files written by pyarrow to a temporary directory:
+               bench.py's scan_parquet shape (60M rows of k int64, v f32, w
+               f32): read_parquet(path)["v"] and a device sum, v exact, k and w
+               never decoded; TPC-H q3 with its tables read through
+               IR.Scan("parquet") equal to phase 9's in-memory q3 exactly, with
+               the probe kernel launched twice (counts zeroed just before);
+               q3's result through IR.Sink("parquet") and read back equal.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -61,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -82,6 +103,9 @@ Q1_SHARES = np.array([0.2499, 0.0066, 0.4935, 0.2500])
 DAY_FIRST, DAY_LAST, Q3_DAY = 8035, 10440, 9204
 JOIN_COLS = ["l_orderkey", "l_extendedprice", "o_orderkey", "o_orderdate",
              "o_shippriority"]
+# The code-sort groupby (phase 4) and the general join lane (phase 6) run on
+# the first CUT_ROWS lineitem rows, to keep the script near 7 minutes.
+CUT_ROWS = 16_000_000
 
 
 def log(msg: str) -> None:
@@ -602,8 +626,9 @@ def sort_lane(gpu: str, tbl, df) -> None:
 
     kinds = ["sum", "mean", "min", "max", "var"]
     aggs = [AggSpec("l_extendedprice", kind, kind) for kind in kinds]
+    df = df.iloc[:CUT_ROWS]
     t = Table({"l_orderkey": Column.from_numpy(df["l_orderkey"].to_numpy()),
-               "l_extendedprice": tbl["l_extendedprice"]})
+               "l_extendedprice": tbl["l_extendedprice"].slice(0, CUT_ROWS)})
     before = k.groupby_sum_count.launches
     t0 = time.perf_counter()
     out = groupby_aggregate(t, ["l_orderkey"], aggs).to_pandas()
@@ -770,12 +795,15 @@ def join_path(gpu: str, df, od, want, match):
 
 
 # ---------------------------------------------------------------- phase 6
-def join_general(gpu: str, li, filtered, want) -> None:
+def join_general(gpu: str, li, filtered, want, match) -> None:
     import torch
 
     from cudf_tpu_torch import join
     from cudf_tpu_torch.kernels import hashtable as ht
 
+    # the first CUT_ROWS lineitem rows; the oracle's rows are in lineitem order
+    li = li.slice(0, CUT_ROWS)
+    want = {c: v[: int(match[:CUT_ROWS].sum())] for c, v in want.items()}
     before = ht.probe_table.launches
 
     def run():
@@ -797,7 +825,7 @@ def join_general(gpu: str, li, filtered, want) -> None:
         raise AssertionError("the general lane launched the probe kernel")
     assert_rows({c: got[c].to_numpy() for c in JOIN_COLS}, want, "general inner", True)
     log(f"join-general: [{gpu}] {filtered.num_rows} filtered orders x {li.num_rows} "
-        f"lineitem (build side, ~4 rows a key) -> {len(got)} rows, matches the "
+        f"lineitem (the build side) -> {len(got)} rows, matches the "
         f"oracle as a multiset; join+to_pandas {first_s:.3f} s (first), join warm "
         f"{warm_s * 1e3:.2f} ms (host clock)")
     log(f"join-general: [{gpu}] warm join profile: " + device_breakdown(run))
@@ -1070,6 +1098,7 @@ def tpch_phase(gpu: str) -> int:
         log(f"tpch {q}: [{gpu}] per-node profile (synchronized): " + _profile_line(profile))
         log(f"tpch {q}: [{gpu}] warm profile: "
             + device_breakdown(lambda: IR.execute(plan)))
+    datetime_checks(gpu, host["lineitem"], dev["lineitem"])
     del dev, plans
     torch.cuda.empty_cache()
 
@@ -1081,7 +1110,259 @@ def tpch_phase(gpu: str) -> int:
     log(f"tpch: q1, q3, q5 and q6 match pandas (assert_frame_equal rtol 1e-6: keys, "
         f"counts and row order exact); pandas oracles {time.perf_counter() - t0:.1f} s "
         f"(host clock)")
-    return probe_launches
+    return probe_launches, host, runs["q3"][0]
+
+
+DT_FIELDS = ["year", "month", "day", "weekday", "day_of_year", "microsecond"]
+TRUNCATE = ("M", "Y")
+
+
+def datetime_checks(gpu: str, li, tbl) -> None:
+    """ops/datetime.py on l_shipdate: extract and truncate against pandas'
+    ``.dt`` (computed on the distinct dates and taken to every row through
+    pd.factorize's codes), exactly; weekday is ISO (pandas' dayofweek + 1).
+    Then one IR plan groups sum(l_extendedprice) by the ship year."""
+    import torch
+
+    from cudf_tpu_torch.expr import expressions as E
+    from cudf_tpu_torch.expr import ir as IR
+    from cudf_tpu_torch.ops import datetime as D
+
+    t0 = time.perf_counter()
+    ship = li["l_shipdate"].to_numpy()
+    inv, uniq = pd.factorize(ship)
+    s = pd.Series(np.asarray(uniq, dtype=ship.dtype)).dt
+    want = {"year": s.year, "month": s.month, "day": s.day, "weekday": s.dayofweek + 1,
+            "day_of_year": s.day_of_year, "microsecond": s.microsecond,
+            "M": s.to_period("M").dt.start_time, "Y": s.to_period("Y").dt.start_time}
+    want = {k: v.to_numpy().astype(ship.dtype if k in TRUNCATE else np.int64)[inv]
+            for k, v in want.items()}
+    oracle_s = time.perf_counter() - t0
+    col = tbl["l_shipdate"]
+    n = col.length
+    times = {}
+    for field in DT_FIELDS + list(TRUNCATE):
+        def op(field=field):
+            return D.truncate(col, field) if field in TRUNCATE else D.extract(col, field)
+        out = op()
+        torch.cuda.synchronize()
+        got = out.data[:n].cpu().numpy()
+        if field in TRUNCATE:
+            got = got.view(ship.dtype)
+        if not np.array_equal(got, want[field]):
+            raise AssertionError(f"datetime: {field} differs from pandas")
+        times[field] = cuda_ms(op, iters=5)
+    log(f"datetime: [{gpu}] extract {'/'.join(DT_FIELDS)} and truncate M/Y of "
+        f"l_shipdate ({n} rows, {ship.dtype}, {len(uniq)} distinct dates) equal pandas "
+        f".dt exactly; device ms a call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; pandas oracles {oracle_s:.1f} s (host clock)")
+
+    plan = IR.Sort(("year",), (False,), (True,), children=(
+        IR.GroupBy(("year",), (E.NamedExpr("revenue", E.col("l_extendedprice").sum()),),
+                   children=(IR.HStack((E.NamedExpr("year", E.col("l_shipdate").dt.year()),),
+                                       children=(IR.DataFrameScan(tbl),)),)),))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = IR.execute(plan).to_pandas()
+    plan_s = time.perf_counter() - t0
+    exp = li.groupby(li["l_shipdate"].dt.year.rename("year"))["l_extendedprice"].sum()
+    np.testing.assert_array_equal(got["year"].to_numpy(np.int64), exp.index.to_numpy(np.int64))
+    np.testing.assert_allclose(got["revenue"].to_numpy(), exp.to_numpy(), rtol=1e-6)
+    log(f"datetime: [{gpu}] sum(l_extendedprice) by col('l_shipdate').dt.year() through "
+        f"IR.execute: {len(got)} years, equal to pandas (years exact, sums rtol 1e-6); "
+        f"execute+to_pandas {plan_s * 1e3:.2f} ms (host clock)")
+
+
+# --------------------------------------------------------------- phase 10
+STR_ROWS = 16_000_000        # bench_sizes.py's middle size; 8M distinct strings
+BENCH_REGEX = r"url/0{3}[0-9a-f]{6}/page"   # bench.py's regex_hc
+SELECTIVE_REGEX = r"[0-9a-f]{8}7/page"      # about 1 key in 16
+EXTRACT = r"^url/([0-9a-f]+)/page$"
+
+
+def synced(fn):
+    """(fn(), seconds) on the host clock, ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def strings_phase(gpu: str) -> None:
+    """bench.py's high-cardinality strings (regex_hc, tokens_hc and their
+    neighbours) at STR_ROWS rows drawn from a pool of STR_ROWS/2 keys: each
+    op against an oracle computed on the pool with Python re or numpy and
+    taken to every row through the generator's indices, exactly. The regexes
+    and the extract must take the device lanes."""
+    import re
+
+    from cudf_tpu_torch import Table
+    from cudf_tpu_torch.ops import strings as S
+    from cudf_tpu_torch.ops import text as X
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    pool = np.array([f"url/{i:09x}/page" for i in range(STR_ROWS // 2)])
+    idx = rng.integers(0, len(pool), STR_ROWS)
+    df = pd.DataFrame({"k": pool[idx]})
+    data_s = time.perf_counter() - t0
+    tbl, ingest_s = synced(lambda: Table.from_pandas(df))
+    k = tbl["k"]
+    log(f"strings: [{gpu}] {STR_ROWS} rows from a pool of {len(pool)} keys: data "
+        f"{data_s:.1f} s, Table.from_pandas {ingest_s:.1f} s (host clock); dictionary "
+        f"{len(k.dictionary)} values")
+
+    def search(pat, how):
+        rx = re.compile(pat)
+        probe = rx.search if how == "search" else rx.match
+        return np.fromiter((probe(s) is not None for s in pool), bool, len(pool))
+
+    t0 = time.perf_counter()
+    hexes = np.array([m.group(1) for m in map(re.compile(EXTRACT).match, pool)])
+    oracles = {"contains_bench": search(BENCH_REGEX, "search"),
+               "contains_selective": search(SELECTIVE_REGEX, "search"),
+               "startswith": np.char.startswith(pool, "url/00"),
+               "count_tokens": np.char.count(pool, "/").astype(np.int32) + 1,
+               "len_strings": np.char.str_len(pool).astype(np.int32)}
+    oracle_s = time.perf_counter() - t0
+    ops = {"contains_bench": (lambda: S.contains(k, BENCH_REGEX, regex=True), S._dfa_steps),
+           "contains_selective": (lambda: S.contains(k, SELECTIVE_REGEX, regex=True),
+                                  S._dfa_steps),
+           "startswith": (lambda: S.startswith(k, "url/00"), None),
+           "count_tokens": (lambda: X.count_tokens(k, "/"), X._count_tokens_device),
+           "len_strings": (lambda: S.len_strings(k), None),
+           "extract_re": (lambda: S.extract_re(k, EXTRACT), S._classrun_kernel)}
+    for lane in (S._dfa_steps, S._classrun_kernel, X._count_tokens_device):
+        lane.launches = 0
+    for name, (fn, lane) in ops.items():
+        before = lane.launches if lane is not None else 0
+        out, first_s = synced(fn)
+        _, warm_s = synced(fn)
+        if lane is not None and lane.launches - before != 2:
+            raise AssertionError(f"strings {name}: the device lane did not run")
+        n = out.length
+        if out.validity is not None and not bool(out.validity[:n].all()):
+            raise AssertionError(f"strings {name}: null rows")
+        got = out.data[:n].cpu().numpy()
+        if name == "extract_re":
+            # the rows' captures as codes into the output's dictionary
+            pos = np.minimum(np.searchsorted(out.dictionary, hexes), len(out.dictionary) - 1)
+            if not (out.dictionary[pos] == hexes)[idx].all():
+                raise AssertionError("strings extract_re: a row's capture is not in the "
+                                     "output's dictionary")
+            want = pos.astype(np.int32)[idx]
+        else:
+            want = oracles[name][idx]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"strings {name}: rows differ from the pool oracle")
+        hits = int(want.sum()) if want.dtype == bool else len(np.unique(want))
+        log(f"strings {name}: [{gpu}] {n} rows equal the oracle "
+            f"({'rows matching' if want.dtype == bool else 'distinct answers'} {hits}); "
+            f"first {first_s * 1e3:.2f} ms, warm {warm_s * 1e3:.2f} ms (host clock, "
+            f"synchronized); lane "
+            + ("host" if lane is None else f"{lane.__name__} x{lane.launches - before}"))
+    log(f"strings: lane launches in the phase: _dfa_steps {S._dfa_steps.launches}, "
+        f"_classrun_kernel {S._classrun_kernel.launches}, _count_tokens_device "
+        f"{X._count_tokens_device.launches}; pool oracles {oracle_s:.1f} s (host clock)")
+    log(f"strings: [{gpu}] warm contains (bench pattern) profile: "
+        + device_breakdown(ops["contains_bench"][0]))
+
+
+# --------------------------------------------------------------- phase 11
+SCAN_ROWS = ROWS             # bench.py's scan_parquet shape at SF10 lineitem size
+Q3_COLUMNS = {"lineitem": ["l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"],
+              "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+              "customer": ["c_custkey", "c_mktsegment"]}
+
+
+def io_phase(gpu: str, host, q3_in_memory, tmp: str) -> int:
+    """Parquet files written by pyarrow into ``tmp`` (outside every timed
+    region): bench.py's scan (read_parquet(path)["v"] and a device sum, the
+    other columns never decoded), TPC-H q3 through IR.Scan against the
+    in-memory q3 exactly, and q3's result through IR.Sink and back. Returns
+    the probe kernel's launches in q3's first run from parquet."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from cudf_tpu_torch import read_parquet
+    from cudf_tpu_torch.expr import expressions as E
+    from cudf_tpu_torch.expr import ir as IR
+    from cudf_tpu_torch.kernels import hashtable as ht
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=SCAN_ROWS).astype(np.float32)
+    scan_path = os.path.join(tmp, "scan.parquet")
+    pq.write_table(pa.table({"k": rng.integers(0, SCAN_ROWS // 20, SCAN_ROWS), "v": v,
+                             "w": rng.normal(size=SCAN_ROWS).astype(np.float32)}),
+                   scan_path)
+    paths = {}
+    for name, cols in Q3_COLUMNS.items():
+        paths[name] = os.path.join(tmp, f"{name}.parquet")
+        pq.write_table(pa.Table.from_pandas(host[name][cols], preserve_index=False),
+                       paths[name])
+    log(f"io: [{gpu}] wrote {SCAN_ROWS} scan rows and q3's tables to parquet in "
+        f"{time.perf_counter() - t0:.1f} s (host clock, outside the timed regions)")
+
+    def scan():
+        t = read_parquet(scan_path)
+        col = t["v"]
+        return t, col, col.data[: col.length].sum()
+
+    times = []
+    for _ in range(2):
+        (t, col, total), s = synced(scan)
+        times.append(s)
+        if t.undecoded() != ["k", "w"]:
+            raise AssertionError(f"io scan: decoded {t.names} less {t.undecoded()}")
+    if not np.array_equal(col.data[: col.length].cpu().numpy(), v):
+        raise AssertionError("io scan: v differs from the written array")
+    want_sum = float(v.sum(dtype=np.float64))
+    if abs(float(total) - want_sum) > 1e-4 * float(np.abs(v).sum()):
+        raise AssertionError(f"io scan: device sum {float(total)}, numpy {want_sum}")
+    size_mb = os.path.getsize(scan_path) / 1e6
+    log(f"io scan: [{gpu}] read_parquet(path)['v'] + device sum over {SCAN_ROWS} rows "
+        f"({size_mb:.1f} MB file): first {times[0] * 1e3:.2f} ms, warm "
+        f"{times[1] * 1e3:.2f} ms (host clock, synchronized); v equals the written "
+        f"array exactly, k and w never decoded")
+    _, decode_s = synced(lambda: pq.ParquetFile(scan_path).read(columns=["v"]).column(0))
+    _, copy_s = synced(lambda: torch.from_numpy(v).to(col.device))
+    log(f"io scan: [{gpu}] its parts: pyarrow decode of v {decode_s * 1e3:.2f} ms, "
+        f"host-to-device copy of v {copy_s * 1e3:.2f} ms (host clock, synchronized)")
+
+    plan = build_q3(lambda n: IR.Scan("parquet", (paths[n],)), E, IR, E.col)
+    def first_run():
+        out = IR.execute(plan)
+        return out, out.to_pandas()
+
+    ht.probe_table.launches = 0
+    (result, got), first_s = synced(first_run)
+    launches = ht.probe_table.launches
+    if launches != 2:
+        raise AssertionError(f"io q3: the probe kernel launched {launches} times, not 2")
+    pd.testing.assert_frame_equal(got, q3_in_memory)
+    # the second run, profiled: each run reads its files again, and a column's
+    # decode and copy fall in the first node that uses it
+    _, profile = IR.execute_with_profile(plan)
+    log(f"io q3: [{gpu}] q3 through IR.Scan('parquet') equals the in-memory q3 exactly "
+        f"({len(got)} rows); execute+to_pandas {first_s * 1e3:.2f} ms (first run), "
+        f"{sum(s for _, s, _ in profile) * 1e3:.2f} ms (second run, profiled) (host "
+        f"clock); probe launches {launches} in the first run")
+    log(f"io q3: [{gpu}] per-node profile (synchronized): " + _profile_line(profile))
+
+    out_path = os.path.join(tmp, "q3_result.parquet")
+    sink = IR.Sink("parquet", out_path, children=(IR.DataFrameScan(result),))
+    _, sink_s = synced(lambda: IR.execute(sink))
+    back = read_parquet(out_path).to_pandas()
+    pd.testing.assert_frame_equal(back, q3_in_memory)
+    log(f"io sink: [{gpu}] q3's result through IR.Sink('parquet') {sink_s * 1e3:.2f} ms "
+        f"(host clock), read back equal ({len(back)} rows)")
+    return launches
 
 
 def main() -> int:
@@ -1115,7 +1396,7 @@ def main() -> int:
     t0 = time.perf_counter()
     li, filtered, probe_launches = join_path(gpu, df, od, want, match)
     t1 = time.perf_counter()
-    join_general(gpu, li, filtered, want)
+    join_general(gpu, li, filtered, want, match)
     t2 = time.perf_counter()
     probe = probe_vs_plain(gpu, li, filtered)
     t3 = time.perf_counter()
@@ -1126,9 +1407,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     sort_phase(gpu)
     t4 = time.perf_counter()
-    probe["tpch_launches"] = tpch_phase(gpu)
-    log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {time.perf_counter() - t4:.1f} s "
-        f"(host clock, data and oracles included)")
+    probe["tpch_launches"], host, q3_out = tpch_phase(gpu)
+    t5 = time.perf_counter()
+    strings_phase(gpu)
+    t6 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
+        probe["io_launches"] = io_phase(gpu, host, q3_out, tmp)
+    del host
+    log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {t5 - t4:.1f} s, strings "
+        f"{t6 - t5:.1f} s, io {time.perf_counter() - t6:.1f} s (host clock, data and "
+        f"oracles included)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

@@ -196,6 +196,39 @@ class Column:
         return cls(dt, d, v, int(spec["length"]), spec.get("dictionary"))
 
     @classmethod
+    def from_arrow(cls, arr, device=None) -> "Column":
+        """Build from a pyarrow Array or ChunkedArray. A string array is
+        dictionary-encoded and its dictionary sorted, so codes and
+        dictionary equal ``from_numpy``'s on the same values (a null row
+        holds the code of "", as there): a string column read from a file
+        joins and compares with one built from pandas."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        dev = resolve_device(device)
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks()
+        if pa.types.is_dictionary(arr.type):
+            arr = arr.cast(arr.type.value_type)
+        validity = np.asarray(arr.is_valid()) if arr.null_count else None
+        if pa.types.is_string(arr.type) or pa.types.is_large_string(arr.type):
+            enc = pc.dictionary_encode(arr.fill_null("") if arr.null_count else arr)
+            uniq = np.asarray(enc.dictionary.to_numpy(zero_copy_only=False)).astype(str)
+            order = np.argsort(uniq, kind="stable")
+            remap = np.empty(len(uniq), np.int32)
+            remap[order] = np.arange(len(uniq), dtype=np.int32)
+            codes = remap[np.asarray(enc.indices)]
+            n = len(arr)
+            cap = bucket_capacity(n)
+            v = _pad_to(validity, cap, dev, False) if validity is not None else None
+            return cls(dtypes.string, _pad_to(codes, cap, dev), v, n,
+                       dictionary=uniq[order])
+        if arr.null_count:
+            fill = False if pa.types.is_boolean(arr.type) else 0
+            arr = arr.fill_null(pa.scalar(fill, arr.type))
+        return cls.from_numpy(np.asarray(arr), validity, device=dev)
+
+    @classmethod
     def from_scalar(cls, value, length: int, dtype: Optional[DType] = None,
                     device=None) -> "Column":
         """``length`` copies of ``value``; ``None`` gives an all-null column
@@ -269,6 +302,26 @@ class Column:
                 out = out.astype(object)
                 out[mask] = np.nan
         return out
+
+    def to_arrow(self):
+        """The logical rows as a pyarrow Array (a string column decodes its
+        codes through the dictionary in pyarrow)."""
+        import pyarrow as pa
+
+        n = self.length
+        data = self.data[:n].cpu().numpy()
+        valid = self._host_validity(n)
+        mask = None if valid is None else ~valid
+        if self.dtype.is_string:
+            d = self.dictionary
+            if not len(d):
+                return pa.array(self.to_numpy(), type=pa.string())
+            codes = pa.array(np.clip(data, 0, len(d) - 1), mask=mask)
+            return pa.DictionaryArray.from_arrays(
+                codes, pa.array(d, type=pa.string())).dictionary_decode()
+        if self.dtype.is_temporal:
+            data = data.view(dtypes.to_numpy(self.dtype))
+        return pa.array(data, mask=mask)
 
     def to_pandas(self, name=None):
         import pandas as pd

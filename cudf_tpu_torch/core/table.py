@@ -1,14 +1,51 @@
 """Table: an ordered mapping of named columns of equal logical length.
 
-Counterpart of ``cudf_tpu/core/table.py``.
+Counterpart of ``cudf_tpu/core/table.py``. A table may hold *deferred*
+columns, which a file scan (``io.read_parquet``) leaves on disk: each is
+decoded and copied to the device at its first access by name, by
+``columns`` or by iteration, and never if the query does not touch it.
+``select``, ``drop``, ``rename`` and ``with_column`` carry deferred columns
+over as they are; host exports (``to_pandas``, ``to_arrow``) decode a
+deferred column on the host and copy nothing to the device. The reference
+defers the device buffer inside its ``Column`` (``_LazyHostData``); here
+the table is the lazy unit, so that ``Column.data`` stays a plain tensor
+on every op's path.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .column import Column, resolve_device
+
+
+class Deferred:
+    """A column not decoded yet: ``length`` rows that ``load()`` reads from
+    their source as a pyarrow array, built into a Column on ``device`` at
+    its first use and kept."""
+
+    __slots__ = ("length", "load", "device", "_column")
+
+    def __init__(self, length: int, load: Callable, device):
+        self.length = int(length)
+        self.load = load
+        self.device = device
+        self._column: Optional[Column] = None
+
+    def column(self) -> Column:
+        if self._column is None:
+            self._column = Column.from_arrow(self.load(), self.device)
+            self.load = None
+        return self._column
+
+    def to_arrow(self):
+        return self._column.to_arrow() if self._column is not None else self.load()
+
+    def to_numpy(self) -> np.ndarray:
+        if self._column is not None:
+            return self._column.to_numpy()
+        return Column.from_arrow(self.load(), device="cpu").to_numpy()
 
 
 class Table:
@@ -25,7 +62,12 @@ class Table:
 
     @property
     def columns(self) -> List[Column]:
-        return list(self._columns.values())
+        return [self[n] for n in self._columns]
+
+    def undecoded(self) -> List[str]:
+        """Names of the deferred columns no access has decoded yet."""
+        return [n for n, c in self._columns.items()
+                if isinstance(c, Deferred) and c._column is None]
 
     @property
     def num_rows(self) -> int:
@@ -44,13 +86,17 @@ class Table:
         return name in self._columns
 
     def __getitem__(self, name: str) -> Column:
-        return self._columns[name]
+        c = self._columns[name]
+        if isinstance(c, Deferred):
+            c = self._columns[name] = c.column()
+        return c
 
     def __iter__(self):
-        return iter(self._columns.items())
+        return ((n, self[n]) for n in list(self._columns))
 
     def __repr__(self) -> str:  # pragma: no cover
-        cols = ", ".join(f"{k}: {v.dtype}" for k, v in self._columns.items())
+        cols = ", ".join(f"{k}: {getattr(v, 'dtype', 'deferred')}"
+                         for k, v in self._columns.items())
         return f"Table[{self.num_rows} rows]({cols})"
 
     def select(self, names: Sequence[str]) -> "Table":
@@ -71,7 +117,7 @@ class Table:
         return Table({mapping.get(n, n): c for n, c in self._columns.items()})
 
     def slice(self, offset: int, length: Optional[int] = None) -> "Table":
-        return Table({n: c.slice(offset, length) for n, c in self._columns.items()})
+        return Table({n: c.slice(offset, length) for n, c in self})
 
     # ----------------------------------------------------------------- inter
     @classmethod
@@ -137,7 +183,19 @@ class Table:
         return cls({n: Column.from_host_buffer(spec, dev)
                     for n, spec in cols.items()})
 
+    @classmethod
+    def from_arrow(cls, tbl, device=None) -> "Table":
+        """Ingest a pyarrow Table (``Column.from_arrow`` per column)."""
+        dev = resolve_device(device)
+        return cls({name: Column.from_arrow(tbl.column(name), dev)
+                    for name in tbl.column_names})
+
     def to_pandas(self):
-        import pandas as pd
+        from ..utils.real_pandas import pd
 
         return pd.DataFrame({n: c.to_numpy() for n, c in self._columns.items()})
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        return pa.table({n: c.to_arrow() for n, c in self._columns.items()})

@@ -8,16 +8,15 @@ datetime.py:40, Ternary ternary.py:27, Cast/UnaryFunction unary.py:23-74).
 Every node evaluates eagerly to a chain of torch column ops.
 
 The node classes and their sugar are the reference's. Evaluation differs
-in two ways:
-
-  * a ``Literal`` under a ``BinOp`` stays a scalar: ``binary_op``
-    broadcasts it as a 0-d tensor, where the reference first builds a
-    full-length column (at 60M rows, ``1 - col("l_discount")`` would
-    allocate and read a 480 MB constant). Anywhere else a literal becomes
-    a full-length column, as in the reference; the answers are equal;
-  * the string functions (ROADMAP item 11) and the temporal ones (item 10)
-    are not ported yet and raise ``NotImplementedError``. String equality
-    against a literal is a ``BinOp`` and works.
+in one way: a ``Literal`` under a ``BinOp`` stays a scalar, and
+``binary_op`` broadcasts it as a 0-d tensor, where the reference first
+builds a full-length column (at 60M rows, ``1 - col("l_discount")`` would
+allocate and read a 480 MB constant). Anywhere else a literal becomes a
+full-length column, as in the reference; the answers are equal. String
+functions run through ``ops/strings.py`` and temporal ones through
+``ops/datetime.py``, whose ``extract`` gives pandas' ``day_of_year`` and
+``truncate`` pandas' month and year starts where the reference's do not
+(ROADMAP section 3).
 """
 from __future__ import annotations
 
@@ -30,6 +29,8 @@ from ..core import dtypes
 from ..core.column import Column
 from ..core.table import Table
 from ..ops import binaryop, copying, unaryop
+from ..ops import datetime as dt_ops
+from ..ops import strings as str_ops
 from .nodebase import CachingVisitor, Node
 
 
@@ -429,13 +430,15 @@ def evaluate(expr: Expr, tbl: Table) -> Column:
         if isinstance(node, Ternary):
             return _where(child(0), child(1), child(2))
         if isinstance(node, StringFn):
-            raise NotImplementedError(
-                f"string function {node.args[0]!r} is not ported yet "
-                "(ROADMAP queue 1 item 11, ops/strings.py)")
+            return _string_fn(child(), node.args[0], node.args[1])
         if isinstance(node, TemporalFn):
-            raise NotImplementedError(
-                f"temporal function {node.args[0]!r} is not ported yet "
-                "(ROADMAP queue 1 item 10, ops/datetime.py)")
+            c = child()
+            fn, params = node.args
+            if fn == "extract":
+                return dt_ops.extract(c, params[0])
+            if fn == "truncate":
+                return dt_ops.truncate(c, params[0])
+            raise ValueError(f"temporal fn {fn}")
         if isinstance(node, Len):
             return Column.from_scalar(tbl.num_rows, 1, dtypes.int64, device=_device(tbl))
         if isinstance(node, Agg):
@@ -443,6 +446,28 @@ def evaluate(expr: Expr, tbl: Table) -> Column:
         raise TypeError(f"cannot evaluate {type(node).__name__}")
 
     return column(CachingVisitor(_eval)(expr))
+
+
+def _string_fn(c: Column, fn: str, params: tuple) -> Column:
+    if fn == "contains":
+        return str_ops.contains(c, params[0], regex=params[1])
+    if fn == "startswith":
+        return str_ops.startswith(c, params[0])
+    if fn == "endswith":
+        return str_ops.endswith(c, params[0])
+    if fn == "like":
+        return str_ops.match_like(c, params[0])
+    if fn == "lower":
+        return str_ops.lower(c)
+    if fn == "upper":
+        return str_ops.upper(c)
+    if fn == "strip":
+        return str_ops.strip(c)
+    if fn == "slice":
+        return str_ops.slice_strings(c, params[0], params[1])
+    if fn == "len":
+        return str_ops.len_strings(c)
+    raise ValueError(f"string fn {fn}")
 
 
 def _where(cond: Column, a: Column, b: Column) -> Column:

@@ -13,10 +13,14 @@ executor's dispatch are the reference's. Differences:
     after; the result is the same table;
   * joins pass ``ordered=False``, as the reference's executor does, so an
     inner join builds its hash table on the smaller side (``ops/join.py``);
+  * the projection pushdown reaches file scans too: a ``Scan`` gives its
+    parent only the columns the plan reads, and since a parquet scan's
+    columns are deferred (``io.read_parquet``), the others are never read
+    from disk. The reference prunes only in-memory scans; the result is
+    the same table;
   * nodes whose ops are not ported yet raise ``NotImplementedError`` and
-    name their ROADMAP queue-1 item: ``Scan`` and ``Sink`` (13, I/O),
-    ``Rolling`` (14), ``ConditionalJoin`` (8), ``MapFunction`` explode
-    (14) and row_index (10).
+    name their ROADMAP queue-1 item: ``Rolling`` (14), ``ConditionalJoin``
+    (8), ``MapFunction`` explode (14) and row_index (10).
 """
 from __future__ import annotations
 
@@ -59,11 +63,12 @@ class DataFrameScan(IR):
 
 
 class Scan(IR):
-    """File scan: (fmt, paths, columns, predicate)."""
+    """File scan: (fmt, paths, columns), on the default device (CUDA)."""
 
     def __init__(self, fmt: str, paths: tuple, columns: Optional[tuple] = None,
-                 children=()):
-        super().__init__(fmt, paths, columns)
+                 device=None, children=()):
+        super().__init__(fmt, tuple(paths), None if columns is None else tuple(columns),
+                         None if device is None else str(device))
 
 
 class Select(IR):
@@ -266,8 +271,14 @@ def _groupby_via_specs(tbl: Table, keys: List[str], agg_exprs: List[NamedExpr]) 
 
 
 def _sync(tbl: Table) -> None:
-    """Wait for the device work behind every buffer of ``tbl``."""
-    for _, c in tbl:
+    """Wait for the device work behind every buffer of ``tbl``. A deferred
+    column of a file scan is not decoded for it: it has no device work yet,
+    and its decode belongs to the node that first uses it."""
+    pending = set(tbl.undecoded())
+    for n in tbl.names:
+        if n in pending:
+            continue
+        c = tbl[n]
         if c.device.type == "cuda":
             torch.cuda.synchronize(c.device)
             return
@@ -312,7 +323,8 @@ def _expr_cols(e, out: set):
 
 
 def scan_column_requirements(root: IR):
-    """Projection pushdown requirements: {DataFrameScan node: set | None}.
+    """Projection pushdown requirements: {DataFrameScan or Scan node: set |
+    None}.
 
     The cudf-polars optimizer prunes scan columns before evaluation
     (python/cudf_polars: polars does it in Rust; the streaming lowering
@@ -331,7 +343,7 @@ def scan_column_requirements(root: IR):
                     else prev | needed
             else:
                 filter_out[n] = None if needed is None else set(needed)
-        if isinstance(n, DataFrameScan):
+        if isinstance(n, (DataFrameScan, Scan)):
             if n in needs:
                 prev = needs[n]
                 needs[n] = None if (prev is None or needed is None) \
@@ -421,8 +433,8 @@ def _pruned_exec(node: IR):
     f_pruned = {n: cols for n, cols in filter_out.items() if cols is not None}
 
     def _exec_pruned(n: IR, visitor) -> Table:
-        if isinstance(n, DataFrameScan) and n in pruned:
-            tbl = n._tbl
+        if isinstance(n, (DataFrameScan, Scan)) and n in pruned:
+            tbl = _exec_node(n, visitor)
             keep = [c for c in tbl.names if c in pruned[n]]
             if len(keep) < len(tbl.names):
                 return tbl.select(keep)
@@ -455,7 +467,11 @@ def _exec_node(n: IR, visitor) -> Table:
     if isinstance(n, DataFrameScan):
         return n._tbl
     if isinstance(n, Scan):
-        raise _not_ported("Scan", 13, "io/")
+        from ..io import scan as io_scan
+
+        fmt, paths, columns, device = n.args
+        return io_scan(fmt, list(paths), None if columns is None else list(columns),
+                       device=device)
     if isinstance(n, Select):
         child = visitor(n.children[0])
         return Table({ne.name: evaluate(ne.expr, child) for ne in n.exprs})
@@ -502,7 +518,11 @@ def _exec_node(n: IR, visitor) -> Table:
     if isinstance(n, Empty):
         return Table({})
     if isinstance(n, Sink):
-        raise _not_ported("Sink", 13, "io/")
+        from ..io import write as io_write
+
+        child = visitor(n.children[0])
+        io_write(child, n.args[0], n.args[1])
+        return child
     if isinstance(n, (Cache, Shuffle, Repartition)):
         # single-partition in-memory execution: shuffling is a no-op
         return visitor(n.children[0])

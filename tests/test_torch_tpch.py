@@ -6,7 +6,9 @@ and pandas.
 over ``gen_tables(4000)``. The port runs on the CPU, where the hash-table
 lane runs the probe kernel's plain version. The port's frame must equal
 the reference's ``IR.execute`` and the pandas oracle: keys, counts and row
-order exact, float sums rtol 1e-6 (tpch.py's own check).
+order exact, float sums rtol 1e-6 (tpch.py's own check). q3 and q6 run
+again with every table written to parquet and read through ``IR.Scan``:
+the frames must equal the in-memory run's exactly.
 """
 import importlib.util
 import pathlib
@@ -104,6 +106,66 @@ def test_projection_pushdown_matches_reference(data, q):
     (rn, rf), (pn, pf) = RIR.scan_column_requirements(rplan), TIR.scan_column_requirements(pplan)
     assert by_table(pn) == by_table(rn)
     assert sorted(map(sorted, pf.values())) == sorted(map(sorted, rf.values()))
+
+
+@pytest.fixture(scope="module")
+def parquet_paths(data, tmp_path_factory):
+    """Each table written to parquet by pyarrow, from the host frames."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    host, _, _ = data
+    root = tmp_path_factory.mktemp("tpch_parquet")
+    paths = {}
+    for name, frame in host.items():
+        paths[name] = str(root / f"{name}.parquet")
+        pq.write_table(pa.Table.from_pandas(frame, preserve_index=False), paths[name])
+    return paths
+
+
+@pytest.mark.parametrize("q,joins", [("q3", 2), ("q6", 0)])
+def test_query_from_parquet_equals_in_memory_and_pandas(data, results, parquet_paths,
+                                                       q, joins):
+    """The same plan with every table read through ``IR.Scan("parquet")``:
+    equal to the DataFrameScan run exactly and to pandas at rtol 1e-6, the
+    probe kernel reached once a join, and only the columns the plan reads
+    decoded."""
+    from cudf_tpu_torch import io as tio
+
+    host = data[0]
+    scans = []
+    inner_scan = tio.scan
+
+    def spy_scan(fmt, paths, *a, **k):
+        scans.append((paths[0], inner_scan(fmt, paths, *a, **k)))
+        return scans[-1][1]
+
+    calls = []
+    inner = tht.probe_table
+
+    def spy(*a):
+        calls.append(1)
+        return inner(*a)
+
+    plan = tpch.QUERIES[q][0](
+        lambda n: TIR.Scan("parquet", (parquet_paths[n],), device="cpu"), TE, TIR, TE.col)
+    tio.scan, tht.probe_table = spy_scan, spy
+    try:
+        got = TIR.execute(plan).to_pandas()
+    finally:
+        tio.scan, tht.probe_table = inner_scan, inner
+    pd.testing.assert_frame_equal(got, results[q][0])
+    want_pd = tpch.QUERIES[q][1](host)
+    pd.testing.assert_frame_equal(got[want_pd.columns], want_pd, rtol=1e-6,
+                                  check_dtype=False)
+    assert len(calls) == joins
+    needs = {node.args[1][0]: cols for node, cols in
+             TIR.scan_column_requirements(plan)[0].items()}
+    assert len(scans) == len(needs)
+    for path, tbl in scans:
+        decoded = {c for c in tbl.names if c not in tbl.undecoded()}
+        assert decoded == needs[path] & set(tbl.names)
+    assert {"l_tax", "l_returnflag"} <= set(dict(scans)[parquet_paths["lineitem"]].undecoded())
 
 
 def test_chip_smoke_copies_equal_the_benchmark():
