@@ -69,6 +69,17 @@ Phases (each prints a line; any failure raises and exits nonzero):
                IR.Scan("parquet") equal to phase 9's in-memory q3 exactly, with
                the probe kernel launched twice (counts zeroed just before);
                q3's result through IR.Sink("parquet") and read back equal.
+ 12. frame   — the DataFrame API, beside the phases whose data it reuses:
+               after phase 3, the README quick start ctt.from_pandas(...)
+               .dropna().groupby(keys).agg(mean, sum, size) at 60M rows
+               against pandas, with the one-hot kernel's launches counted
+               (its V = 2 time at that shape), and Series shift, diff,
+               rolling(7).mean(), hash_values and a categorical round trip;
+               after phase 5, DataFrame.merge on the hash lane (probe
+               launches counted) and sort_values against the oracle; in
+               phase 11, ctt.read_parquet(p)["v"].sum() decoding only v and
+               ctt.read_parquet(p).dropna().groupby("k").agg(mean) with 3M
+               groups against numpy.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -649,14 +660,17 @@ def sort_lane(gpu: str, tbl, df) -> None:
     np.testing.assert_array_equal(out["l_orderkey"].to_numpy(), want["l_orderkey"].to_numpy())
     np.testing.assert_array_equal(out["min"].to_numpy(np.float64), want["min"].to_numpy())
     np.testing.assert_array_equal(out["max"].to_numpy(np.float64), want["max"].to_numpy())
-    # A group's sum is the difference of two f64 prefix sums over the whole
-    # sorted table, so it carries an absolute error of a few ulps of the
-    # running total, shared by every group (a one-row group of ~900 sees it
-    # as ~1e-6 relative); 32 ulps covers a scan over 2^26 rows. The sum is
-    # then rounded to f32 (2^-24 relative); mean is f64 sum / count.
+    # Each group's sum adds only its own rows (fastgroup.GroupSums), so a
+    # term of a group of m rows goes through at most m - 1 additions in any
+    # order: the error is within c·eps·Σ_group|x| with c = m, the group's
+    # own row count (1 to 7 here). The sum is then rounded to f32 (2^-23
+    # relative); mean is the f64 sum over the count. The var is two-pass (a
+    # sum of (x - group mean)^2), within c·eps·Σ_group x² of its M2.
     eps = np.finfo(np.float64).eps
+    _, inv = np.unique(df["l_orderkey"].to_numpy(), return_inverse=True)
     cnt = want["count"].to_numpy()
-    atol_sum = 32 * eps * float(np.abs(p).sum())
+    rows = np.bincount(inv)
+    atol_sum = rows * eps * np.bincount(inv, weights=np.abs(p))
     used = {}
     for name, atol, rtol in (("sum", atol_sum, 2.0 ** -23),
                              ("mean", atol_sum / cnt, 1e-12)):
@@ -664,25 +678,252 @@ def sort_lane(gpu: str, tbl, df) -> None:
         err = np.abs(got_v - want_v)
         used[name] = float((err / (rtol * np.abs(want_v) + atol)).max())
         if used[name] > 1:
-            raise AssertionError(f"{name} off by {err.max()} (beyond the prefix-sum bound)")
-    # single-pass centred var: prefix sums of (x-K)^2 carry an absolute error
-    # of a few ulps of the table-wide total, shared by every group
-    xc = p - p.mean()
-    atol_m2 = 1e3 * eps * float((xc * xc).sum())
+            raise AssertionError(f"{name} off by {err.max()} (beyond the per-group bound)")
+    atol_m2 = rows * eps * np.bincount(inv, weights=p * p)
     gv, wv = out["var"].to_numpy(), want["var"].to_numpy()
     if not np.array_equal(np.isnan(gv), np.isnan(wv)):
         raise AssertionError("var null pattern differs")
     ok = ~np.isnan(wv)
     err = np.abs(gv[ok] - wv[ok])
-    tol = 1e-6 * np.abs(wv[ok]) + atol_m2 / np.maximum(cnt[ok] - 1, 1)
-    if (err > tol).any():
-        raise AssertionError(f"var off by {err.max()}")
+    used["var"] = float((err / (1e-12 * np.abs(wv[ok])
+                                + atol_m2[ok] / np.maximum(cnt[ok] - 1, 1))).max())
+    if used["var"] > 1:
+        raise AssertionError(f"var off by {err.max()} (beyond the per-group bound)")
     log(f"sort: matches pandas groupby(sort=True): {len(out)} groups, keys and "
-        f"min/max exact, sum/mean/var within the prefix-sum bound (sum/mean "
-        f"{atol_sum:.3g} absolute on the sum; worst error {used['sum']:.3f} of the "
-        f"bound for sum, {used['mean']:.3f} for mean)")
+        f"min/max exact, sum/mean/var within the per-group bound (m·eps·Σ_group|x| "
+        f"on the sum; worst error {used['sum']:.3f} of the bound for sum, "
+        f"{used['mean']:.3f} for mean, {used['var']:.3f} for var)")
     log(f"sort: [{gpu}] warm groupby profile: "
         + device_breakdown(lambda: groupby_aggregate(t, ["l_orderkey"], aggs)))
+
+
+# ---------------------------------------------------------------- phase 12
+# The frame phase runs beside the phases whose data it reuses: the README
+# quick start and the Series ops on phase 3's frame, DataFrame.merge on
+# phase 5's tables, and the frame over parquet on phase 11's scan file.
+def frame_readme(gpu: str, df):
+    """The README quick start through the port's DataFrame at 60M rows:
+    from_pandas -> dropna -> groupby(KEYS).agg(mean, sum, size) ->
+    to_pandas, against pandas. After dropna the f32 value column holds no
+    NaN or null, so the one-hot kernel takes it as itself (V = 1). Then the
+    same groupby without dropna over a value column with a NaN in every
+    50th row: the frame turns the NaNs into nulls and the kernel takes the
+    column with its mask (V = 2: valid sum, valid count, row count).
+    Returns the frame, the one-hot kernel's launches in the two runs and
+    the phase's seconds."""
+    import torch
+
+    import cudf_tpu_torch as ctt
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.kernels import onehot_groupby as k
+    from cudf_tpu_torch.utils.padding import bucket_capacity
+
+    t_start = time.perf_counter()
+    q1 = df[KEYS + ["l_extendedprice"]]
+    aggs = dict(avg=("l_extendedprice", "mean"), s=("l_extendedprice", "sum"),
+                n=("l_extendedprice", "size"))
+
+    def run(frame):
+        return frame.dropna().groupby(KEYS).agg(**aggs)
+
+    k.groupby_sum_count.launches = 0
+    ht.probe_table.launches = 0
+    t0 = time.perf_counter()
+    frame = ctt.from_pandas(q1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = run(frame).to_pandas()
+    t2 = time.perf_counter()
+    launches = k.groupby_sum_count.launches
+    if launches < 1:
+        raise AssertionError("the README quick start did not launch the one-hot kernel")
+    if ht.probe_table.launches:
+        raise AssertionError("the README quick start launched the probe kernel")
+    _, warm_s = synced(lambda: run(frame))
+    log(f"frame: [{gpu}] ctt.from_pandas({len(q1)} rows) {t1 - t0:.3f} s; "
+        f"dropna().groupby().agg(mean, sum, size).to_pandas() {t2 - t1:.3f} s "
+        f"(first), {warm_s * 1e3:.2f} ms warm without to_pandas (host clock, "
+        f"synchronized); one-hot kernel launches {launches}")
+
+    want = (q1.dropna().astype({"l_extendedprice": np.float64})
+            .groupby(KEYS, sort=True)["l_extendedprice"].agg(["mean", "sum", "size"]))
+    np.testing.assert_array_equal(out.index.to_frame().to_numpy(np.int64),
+                                  want.index.to_frame().to_numpy(np.int64))
+    np.testing.assert_array_equal(out["n"].to_numpy(), want["size"].to_numpy())
+    np.testing.assert_allclose(out["avg"], want["mean"], rtol=1e-6)
+    np.testing.assert_allclose(out["s"], want["sum"], rtol=1e-5)
+    if not np.isfinite(out[["avg", "s"]].to_numpy()).all():
+        raise AssertionError("frame: non-finite aggregates")
+    log(f"frame: the README quick start matches pandas: {len(out)} groups, keys and "
+        f"sizes exact, mean rtol 1e-6, sum rtol 1e-5")
+
+    # the value column with NaNs, no dropna: the one-hot lane at V = 2
+    keep = np.arange(len(q1)) % 50 != 0
+    nan_frame = frame.copy()
+    nan_frame["l_extendedprice"] = frame["l_extendedprice"].where(ctt.Series(keep), np.nan)
+    before = k.groupby_sum_count.launches
+
+    def run_nan():
+        return nan_frame.groupby(KEYS).agg(c=("l_extendedprice", "count"), **aggs)
+
+    t3 = time.perf_counter()
+    out = run_nan().to_pandas()
+    t4 = time.perf_counter()
+    nan_launches = k.groupby_sum_count.launches - before
+    if nan_launches < 1:
+        raise AssertionError("the groupby over NaN values did not launch the one-hot kernel")
+    launches += nan_launches
+    _, nan_warm_s = synced(run_nan)
+    log(f"frame: [{gpu}] groupby().agg(count, mean, sum, size) over values with NaNs "
+        f"(V = 2) .to_pandas() {t4 - t3:.3f} s (first), {nan_warm_s * 1e3:.2f} ms warm "
+        f"without to_pandas (host clock, synchronized); one-hot kernel launches "
+        f"{nan_launches}")
+    q1n = q1.astype({"l_extendedprice": np.float64})
+    q1n.loc[~keep, "l_extendedprice"] = np.nan
+    want = q1n.groupby(KEYS, sort=True)["l_extendedprice"].agg(["count", "mean", "sum",
+                                                                "size"])
+    np.testing.assert_array_equal(out.index.to_frame().to_numpy(np.int64),
+                                  want.index.to_frame().to_numpy(np.int64))
+    np.testing.assert_array_equal(out["n"].to_numpy(), want["size"].to_numpy())
+    np.testing.assert_array_equal(out["c"].to_numpy(), want["count"].to_numpy())
+    np.testing.assert_allclose(out["avg"], want["mean"], rtol=1e-6)
+    np.testing.assert_allclose(out["s"], want["sum"], rtol=1e-5)
+    log(f"frame: the groupby over NaN values matches pandas: {len(out)} groups, keys, "
+        f"sizes and counts exact, mean rtol 1e-6, sum rtol 1e-5")
+    del nan_frame, q1n
+
+    # the kernel at the frame path's shape: V = 2 (where(valid, v, 0), valid)
+    n_active = int(q1[KEYS].notna().all(axis=1).sum())
+    cap = bucket_capacity(n_active)
+    gid, vals, w, K = onehot_inputs(cap, n_active, 2, torch.device("cuda"))
+    vals2 = torch.cat([vals, torch.ones_like(vals)], 1)
+    err = _check_onehot(k, gid, vals2, w, K, True)
+    ms = cuda_ms(lambda: k.groupby_sum_count(gid, vals2, w, K))
+    plain_ms = cuda_ms(lambda: k.groupby_sum_count_plain(gid, vals2, w, K), iters=5)
+    n_in = int((gid >= 0).sum())
+    nbytes = cap * 4 + n_in * (4 * 2 + 4) + K * 3 * 8
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, n_in * 8 / F32_FLOPS) * 1e3
+    log(f"frame: [{gpu}] onehot_groupby_sum_count at the frame path's shape N={cap} "
+        f"({n_in} rows in range) V=2 K={K} (shared tier, K(V+1) = {K * 3}): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e9:.4f} GB at 3.35 TB/s); equals its plain version, "
+        f"max_abs_err={err}")
+    return frame, launches, time.perf_counter() - t_start
+
+
+def frame_series(gpu: str, df, frame) -> float:
+    """Series ops at 60M rows on the frame's l_extendedprice, each against
+    pandas: shift(1) and diff() exactly, rolling(7).mean() at rtol 1e-5 (a
+    window's sum is a difference of f64 prefix sums over 60M rows, as in
+    the reference: ~1e-7 of a window's sum);
+    DataFrame.hash_values() against the port's CPU path on the first 1M
+    rows; a categorical round trip of l_returnflag and its astype("category")
+    on the card. Returns the seconds."""
+    import cudf_tpu_torch as ctt
+
+    t_start = time.perf_counter()
+    p = df["l_extendedprice"]
+    s = frame["l_extendedprice"]
+    times = {}
+    for name, fn, want, rtol in (
+            ("shift(1)", lambda: s.shift(1), lambda: p.shift(1), 0),
+            ("diff()", lambda: s.diff(), lambda: p.diff(), 0),
+            ("rolling(7).mean()", lambda: s.rolling(7).mean(),
+             lambda: p.rolling(7).mean(), 1e-5)):
+        got, times[name] = synced(fn)
+        g, w = got.to_pandas().to_numpy(np.float64), want().to_numpy(np.float64)
+        np.testing.assert_allclose(g, w, rtol=rtol, equal_nan=True, err_msg=name)
+    h, times["hash_values()"] = synced(lambda: frame.hash_values())
+    n = 1_000_000
+    cpu = ctt.from_pandas(df[KEYS + ["l_extendedprice"]].iloc[:n], device="cpu")
+    np.testing.assert_array_equal(h.to_numpy()[:n], cpu.hash_values().to_numpy())
+    cat = df["l_returnflag"].astype("category")
+    back, times["categorical round trip"] = synced(lambda: ctt.Series(cat).to_pandas())
+    if not (np.array_equal(back.cat.codes.to_numpy(), cat.cat.codes.to_numpy())
+            and list(back.cat.categories) == list(cat.cat.categories)
+            and back.cat.ordered == cat.cat.ordered):
+        raise AssertionError("frame: the categorical round trip changed l_returnflag")
+    fac, times["astype('category')"] = synced(
+        lambda: frame["l_returnflag"].astype("category"))
+    fac = fac.to_pandas()
+    if not (np.array_equal(fac.cat.codes.to_numpy(), cat.cat.codes.to_numpy())
+            and list(fac.cat.categories) == list(cat.cat.categories)):
+        raise AssertionError("frame: astype('category') on the card differs from pandas")
+    log(f"frame: [{gpu}] Series over {len(p)} rows equal pandas (shift, diff exact; "
+        f"rolling mean rtol 1e-5), hash_values equals the CPU path on {n} rows, the "
+        f"categorical round trip and astype('category') are exact; " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in times.items())
+        + " (host clock, synchronized, first call)")
+    return time.perf_counter() - t_start
+
+
+def frame_merge(gpu: str, li, filtered, want) -> tuple:
+    """DataFrame.merge of lineitem (60M) with the filtered orders through the
+    hash lane, row for row against the numpy oracle, then sort_values by
+    (l_orderkey, l_extendedprice): its first and last rows and their
+    labels. Returns the probe kernel's launches in the merge and the
+    seconds."""
+    import torch
+
+    import cudf_tpu_torch as ctt
+    from cudf_tpu_torch.kernels import hashtable as ht
+
+    t_start = time.perf_counter()
+    left, right = ctt.DataFrame(li), ctt.DataFrame(filtered)
+    ht.probe_table.launches = 0
+    merged, merge_s = synced(lambda: left.merge(right, left_on="l_orderkey",
+                                                right_on="o_orderkey"))
+    launches = ht.probe_table.launches
+    if launches < 1:
+        raise AssertionError("DataFrame.merge did not launch the probe kernel")
+    assert_rows(_columns(merged.table, JOIN_COLS), want, "frame merge", False)
+    srt, sort_s = synced(lambda: merged.sort_values(["l_orderkey", "l_extendedprice"]))
+    order = np.lexsort((want["l_extendedprice"], want["l_orderkey"]))
+    for end, pos in ((srt.head(1), order[0]), (srt.tail(1), order[-1])):
+        row = end.to_pandas()
+        if int(row.index[0]) != pos or any(row[c].iloc[0] != want[c][pos]
+                                           for c in JOIN_COLS):
+            raise AssertionError(f"frame sort_values: row {row} is not the oracle's {pos}")
+    torch.cuda.synchronize()
+    log(f"frame: [{gpu}] DataFrame.merge {li.num_rows} x {filtered.num_rows} -> "
+        f"{len(merged)} rows {merge_s * 1e3:.2f} ms, equal to the oracle row for row; "
+        f"sort_values([l_orderkey, l_extendedprice]) {sort_s * 1e3:.2f} ms, first and "
+        f"last rows and labels as the oracle's (host clock, synchronized); probe "
+        f"launches {launches}")
+    return launches, time.perf_counter() - t_start
+
+
+def frame_scan(gpu: str, path: str, k, v) -> float:
+    """The README quick start from a file: ctt.read_parquet(p).dropna()
+    .groupby("k").agg(c=("v", "mean")).to_pandas() on the scan file (60M
+    rows, 3M groups: the code-sort lane) against a numpy oracle, and
+    ctt.read_parquet(p)["v"].sum() decoding only v. Returns the seconds."""
+    import cudf_tpu_torch as ctt
+
+    t_start = time.perf_counter()
+
+    def one_column():
+        df = ctt.read_parquet(path)
+        return df, df["v"].sum()
+
+    (df, total), sum_s = synced(one_column)
+    if df.table.undecoded() != ["k", "w"]:
+        raise AssertionError(f"frame scan: decoded more than v: {df.table.undecoded()}")
+    want_sum = float(v.sum(dtype=np.float64))
+    if abs(total - want_sum) > 1e-4 * float(np.abs(v).sum()):  # an f32 sum
+        raise AssertionError(f"frame scan: sum {total}, numpy {want_sum}")
+    out, first_s = synced(lambda: ctt.read_parquet(path).dropna().groupby("k")
+                          .agg(c=("v", "mean")).to_pandas())
+    cnt = np.bincount(k)
+    keys = np.flatnonzero(cnt)
+    mean = np.bincount(k, weights=v.astype(np.float64))[keys] / cnt[keys]
+    np.testing.assert_array_equal(out.index.to_numpy(), keys)
+    np.testing.assert_allclose(out["c"].to_numpy(), mean, rtol=1e-12)
+    log(f"frame: [{gpu}] ctt.read_parquet(p)['v'].sum() {sum_s * 1e3:.2f} ms, k and w "
+        f"never decoded; read_parquet(p).dropna().groupby('k').agg(c=('v', 'mean'))"
+        f".to_pandas() {first_s * 1e3:.2f} ms for {len(out)} groups, keys exact and "
+        f"means rtol 1e-12 against numpy (host clock, synchronized)")
+    return time.perf_counter() - t_start
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1279,17 +1520,18 @@ Q3_COLUMNS = {"lineitem": ["l_orderkey", "l_extendedprice", "l_discount", "l_shi
               "customer": ["c_custkey", "c_mktsegment"]}
 
 
-def io_phase(gpu: str, host, q3_in_memory, tmp: str) -> int:
+def io_phase(gpu: str, host, q3_in_memory, tmp: str):
     """Parquet files written by pyarrow into ``tmp`` (outside every timed
     region): bench.py's scan (read_parquet(path)["v"] and a device sum, the
-    other columns never decoded), TPC-H q3 through IR.Scan against the
-    in-memory q3 exactly, and q3's result through IR.Sink and back. Returns
-    the probe kernel's launches in q3's first run from parquet."""
+    other columns never decoded), the frame phase's scan (frame_scan), TPC-H
+    q3 through IR.Scan against the in-memory q3 exactly, and q3's result
+    through IR.Sink and back. Returns the probe kernel's launches in q3's
+    first run from parquet and the frame scan's seconds."""
     import pyarrow as pa
     import pyarrow.parquet as pq
     import torch
 
-    from cudf_tpu_torch import read_parquet
+    from cudf_tpu_torch.io import read_parquet
     from cudf_tpu_torch.expr import expressions as E
     from cudf_tpu_torch.expr import ir as IR
     from cudf_tpu_torch.kernels import hashtable as ht
@@ -1297,8 +1539,9 @@ def io_phase(gpu: str, host, q3_in_memory, tmp: str) -> int:
     t0 = time.perf_counter()
     rng = np.random.default_rng(5)
     v = rng.normal(size=SCAN_ROWS).astype(np.float32)
+    k = rng.integers(0, SCAN_ROWS // 20, SCAN_ROWS)
     scan_path = os.path.join(tmp, "scan.parquet")
-    pq.write_table(pa.table({"k": rng.integers(0, SCAN_ROWS // 20, SCAN_ROWS), "v": v,
+    pq.write_table(pa.table({"k": k, "v": v,
                              "w": rng.normal(size=SCAN_ROWS).astype(np.float32)}),
                    scan_path)
     paths = {}
@@ -1334,6 +1577,7 @@ def io_phase(gpu: str, host, q3_in_memory, tmp: str) -> int:
     _, copy_s = synced(lambda: torch.from_numpy(v).to(col.device))
     log(f"io scan: [{gpu}] its parts: pyarrow decode of v {decode_s * 1e3:.2f} ms, "
         f"host-to-device copy of v {copy_s * 1e3:.2f} ms (host clock, synchronized)")
+    frame_s = frame_scan(gpu, scan_path, k, v)
 
     plan = build_q3(lambda n: IR.Scan("parquet", (paths[n],)), E, IR, E.col)
     def first_run():
@@ -1362,7 +1606,7 @@ def io_phase(gpu: str, host, q3_in_memory, tmp: str) -> int:
     pd.testing.assert_frame_equal(back, q3_in_memory)
     log(f"io sink: [{gpu}] q3's result through IR.Sink('parquet') {sink_s * 1e3:.2f} ms "
         f"(host clock), read back equal ({len(back)} rows)")
-    return launches
+    return launches, frame_s
 
 
 def main() -> int:
@@ -1386,6 +1630,9 @@ def main() -> int:
 
     onehot = kernels_vs_plain(gpu, bucket_capacity(n_active), n_active)
     tbl, onehot["launches"] = main_path(gpu, df)
+    frame, onehot["frame_launches"], frame_s = frame_readme(gpu, df)
+    frame_s += frame_series(gpu, df, frame)
+    del frame
     sort_lane(gpu, tbl, df)
     del tbl
     t0 = time.perf_counter()
@@ -1395,6 +1642,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (host clock)")
     t0 = time.perf_counter()
     li, filtered, probe_launches = join_path(gpu, df, od, want, match)
+    merge_launches, merge_s = frame_merge(gpu, li, filtered, want)
+    frame_s += merge_s
     t1 = time.perf_counter()
     join_general(gpu, li, filtered, want, match)
     t2 = time.perf_counter()
@@ -1403,6 +1652,7 @@ def main() -> int:
     log(f"phases: [{gpu}] join {t1 - t0:.1f} s, join-general {t2 - t1:.1f} s, probe "
         f"kernel checks {t3 - t2:.1f} s (host clock, checks included)")
     probe["launches"] = probe_launches
+    probe["frame_launches"] = merge_launches
     del df, od, want, match, li, filtered  # the README and join frames
     torch.cuda.empty_cache()
     sort_phase(gpu)
@@ -1412,11 +1662,14 @@ def main() -> int:
     strings_phase(gpu)
     t6 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
-        probe["io_launches"] = io_phase(gpu, host, q3_out, tmp)
+        probe["io_launches"], scan_s = io_phase(gpu, host, q3_out, tmp)
+    frame_s += scan_s
     del host
     log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {t5 - t4:.1f} s, strings "
         f"{t6 - t5:.1f} s, io {time.perf_counter() - t6:.1f} s (host clock, data and "
         f"oracles included)")
+    log(f"phases: [{gpu}] frame {frame_s:.1f} s (host clock, oracles included: the "
+        f"README quick start and Series ops, the merge, the frame over parquet)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

@@ -1,8 +1,8 @@
 """Columnar data model: device-resident, padded, null-aware columns.
 
-Counterpart of ``cudf_tpu/core/column.py`` (numeric, bool and
-dictionary-encoded string columns; categorical, list, struct and decimal
-columns are not ported yet). Invariants kept from the reference:
+Counterpart of ``cudf_tpu/core/column.py`` (numeric, bool,
+dictionary-encoded string and categorical columns, ``core/categorical.py``;
+list, struct and decimal columns are not ported yet). Invariants kept from the reference:
 
   - data.shape == (capacity,), capacity == bucket_capacity(length) normally
   - rows with index >= length are garbage; every operator masks them
@@ -326,4 +326,8 @@ class Column:
     def to_pandas(self, name=None):
         import pandas as pd
 
+        from .categorical import is_categorical, to_pandas_categorical
+
+        if is_categorical(self):
+            return pd.Series(to_pandas_categorical(self), name=name)
         return pd.Series(self.to_numpy(), name=name)

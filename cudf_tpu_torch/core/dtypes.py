@@ -66,6 +66,10 @@ class DType:
         return np.dtype(str(self.physical).replace("torch.", ""))
 
     @property
+    def is_numeric(self) -> bool:
+        return self.kind in (Kind.INT, Kind.UINT, Kind.FLOAT, Kind.BOOL, Kind.DECIMAL)
+
+    @property
     def is_floating(self) -> bool:
         return self.kind == Kind.FLOAT
 

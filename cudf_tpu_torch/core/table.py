@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .column import Column, resolve_device
 
@@ -23,14 +24,16 @@ from .column import Column, resolve_device
 class Deferred:
     """A column not decoded yet: ``length`` rows that ``load()`` reads from
     their source as a pyarrow array, built into a Column on ``device`` at
-    its first use and kept."""
+    its first use and kept. ``np_dtype`` is the numpy dtype the column
+    will have, from the source's schema."""
 
-    __slots__ = ("length", "load", "device", "_column")
+    __slots__ = ("length", "load", "device", "np_dtype", "_column")
 
-    def __init__(self, length: int, load: Callable, device):
+    def __init__(self, length: int, load: Callable, device, np_dtype: np.dtype):
         self.length = int(length)
         self.load = load
         self.device = device
+        self.np_dtype = np_dtype
         self._column: Optional[Column] = None
 
     def column(self) -> Column:
@@ -63,6 +66,14 @@ class Table:
     @property
     def columns(self) -> List[Column]:
         return [self[n] for n in self._columns]
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The device of the table's first column, decoded or not (a
+        deferred column is not decoded to learn it); None without columns."""
+        for c in self._columns.values():
+            return torch.device(c.device)
+        return None
 
     def undecoded(self) -> List[str]:
         """Names of the deferred columns no access has decoded yet."""
@@ -132,8 +143,10 @@ class Table:
         for name in df.columns:
             s = df[name]
             if str(s.dtype) == "category":
-                raise NotImplementedError(
-                    "categorical columns are not ported yet")
+                from .categorical import from_pandas_categorical
+
+                cols[str(name)] = from_pandas_categorical(s.values, dev)
+                continue
             if isinstance(s.dtype, pd.api.extensions.ExtensionDtype) and \
                     str(s.dtype) != "string":
                 isnull = s.isna().to_numpy()
@@ -192,8 +205,12 @@ class Table:
 
     def to_pandas(self):
         from ..utils.real_pandas import pd
+        from .categorical import is_categorical, to_pandas_categorical
 
-        return pd.DataFrame({n: c.to_numpy() for n, c in self._columns.items()})
+        return pd.DataFrame({
+            n: (to_pandas_categorical(c) if isinstance(c, Column) and is_categorical(c)
+                else c.to_numpy())
+            for n, c in self._columns.items()})
 
     def to_arrow(self):
         import pyarrow as pa

@@ -375,8 +375,11 @@ class _Lit:
 
 
 def _device(tbl: Table) -> torch.device:
-    for c in tbl.columns:
-        return c.device
+    """Where a literal's column goes: the table's device, read without
+    decoding a deferred column."""
+    dev = tbl.device
+    if dev is not None:
+        return dev
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 

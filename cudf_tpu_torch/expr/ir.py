@@ -19,8 +19,8 @@ executor's dispatch are the reference's. Differences:
     from disk. The reference prunes only in-memory scans; the result is
     the same table;
   * nodes whose ops are not ported yet raise ``NotImplementedError`` and
-    name their ROADMAP queue-1 item: ``Rolling`` (14), ``ConditionalJoin``
-    (8), ``MapFunction`` explode (14) and row_index (10).
+    name their ROADMAP queue-1 item: ``ConditionalJoin`` (8) and
+    ``MapFunction`` explode (14).
 """
 from __future__ import annotations
 
@@ -530,7 +530,18 @@ def _exec_node(n: IR, visitor) -> Table:
         child = visitor(n.children[0])
         return Table({ne.name: evaluate(ne.expr, child) for ne in n.exprs})
     if isinstance(n, Rolling):
-        raise _not_ported("Rolling", 14, "ops/rolling.py")
+        from ..ops import rolling as rolling_ops
+
+        orderby, window, aggs, range_based = n.args
+        out = sorting.sort_by_key(visitor(n.children[0]), [orderby])
+        cols = dict(out)
+        for out_name, vname, kind in aggs:
+            if range_based:
+                cols[out_name] = rolling_ops.rolling_range(out[vname], out[orderby],
+                                                           window, kind)
+            else:
+                cols[out_name] = rolling_ops.rolling(out[vname], window, kind)
+        return Table(cols)
     if isinstance(n, ConditionalJoin):
         raise _not_ported("ConditionalJoin", 8, "ops/join.py:conditional_join")
     if isinstance(n, MergeSorted):
@@ -543,7 +554,11 @@ def _exec_node(n: IR, visitor) -> Table:
         if name == "rename":
             return child.rename(dict(options))
         if name == "row_index":
-            raise _not_ported("MapFunction row_index", 10, "ops/filling.py")
+            from ..ops.filling import sequence
+
+            (out_name,) = options or ("index",)
+            return Table({out_name: sequence(child.num_rows, device=child.device),
+                          **dict(child)})
         if name == "explode":
             raise _not_ported("MapFunction explode", 14, "core/lists.py")
         raise ValueError(f"unknown MapFunction {name!r}")

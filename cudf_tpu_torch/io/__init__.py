@@ -85,8 +85,21 @@ def _read_parquet_deferred(path: str, columns, dev) -> Optional[Table]:
     names = [str(c) for c in columns] if columns else list(schema.names)
     if any(n not in schema.names for n in names):
         return None
-    return Table({n: Deferred(num_rows, lambda n=n: _read_column(path, n), dev)
+    return Table({n: Deferred(num_rows, lambda n=n: _read_column(path, n), dev,
+                              _np_dtype(schema.field(n).type))
                   for n in names})
+
+
+def _np_dtype(t) -> np.dtype:
+    """The numpy dtype ``Column.from_arrow`` gives an arrow type: object for
+    strings (dictionary-encoded or not), else pyarrow's pandas dtype."""
+    import pyarrow as pa
+
+    if pa.types.is_dictionary(t):
+        t = t.value_type
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        return np.dtype(object)
+    return np.dtype(t.to_pandas_dtype())
 
 
 def read_parquet_chunked(path, columns: Optional[Sequence[str]] = None,
@@ -179,6 +192,22 @@ def parquet_metadata(path):
     return pq.ParquetFile(path).metadata
 
 
+def _read_through(f, delim: bytes, chunk: int = 1 << 20) -> bytes:
+    """The bytes from ``f``'s position through the first ``delim``, or to
+    EOF: a row is never cut, however long it is."""
+    out = b""
+    while True:
+        part = f.read(chunk)
+        # a delimiter may straddle two reads: search from len(delim)-1 back
+        start = max(0, len(out) - len(delim) + 1)
+        out += part
+        cut = out.find(delim, start)
+        if cut >= 0:
+            return out[: cut + len(delim)]
+        if not part:
+            return out
+
+
 def read_text(path, delimiter: str = "\n", byte_range=None, device=None) -> Column:
     """cudf::io::text multibyte_split analog: split a file, or the byte
     range (offset, size) of it, into a string column on a delimiter. A
@@ -191,10 +220,7 @@ def read_text(path, delimiter: str = "\n", byte_range=None, device=None) -> Colu
             offset, size = byte_range
             f.seek(offset)
             data = f.read(size)
-            nxt = f.read(1 << 20)  # extend to the next delimiter
-            cut = nxt.find(delimiter.encode())
-            if cut >= 0:
-                data += nxt[: cut + len(delimiter)]
+            data += _read_through(f, delimiter.encode())
             if offset:
                 head = data.find(delimiter.encode())
                 data = data[head + len(delimiter):] if head >= 0 else b""

@@ -7,8 +7,9 @@ Counterpart of ``cudf_tpu/ops/fastgroup.py``:
      cached column stats (core/stats.py);
   2. codes pack lexicographically into one int64 slot; a stable sort by the
      slot makes groups contiguous and in key order (pandas sort=True);
-  3. sums and counts are prefix sums read at group boundaries; min/max and
-     the other order statistics are per-group reductions.
+  3. sums and counts are per-group sums over the sorted rows
+     (``GroupSums``); min/max and the other order statistics are per-group
+     reductions.
 
 ``_onehot_groupby`` (the reference's ``_pallas_onehot_groupby``) sends
 <= 2048-slot keys with f32 sum/mean/count/size to the hand-written kernel
@@ -37,6 +38,14 @@ _SUPPORTED = {
 ONEHOT_KINDS = {"sum", "mean", "count", "size"}
 ONEHOT_MAX_BITS = 11  # 2^11 = 2048 slots: kernels/onehot_groupby.MAX_GROUPS
 
+# GroupSums plans: pieces of <= _PIECE rows for groups of _LARGE rows or
+# more on average, else blocks of _BLOCK rows (log2(_BLOCK) scan steps).
+# The plans were timed at the two ends (9.8M groups of ~1.6 rows, six of
+# ~10M rows); _LARGE between them was not measured at its crossover.
+_PIECE = 1024
+_LARGE = 256
+_BLOCK = 16
+_STEPS = tuple(1 << i for i in range(_BLOCK.bit_length() - 1))
 _I32MAX = int(np.iinfo(np.int32).max)
 _I64_MIN = -(1 << 63)
 
@@ -140,9 +149,95 @@ def padded_column(dtype, data: torch.Tensor, validity: Optional[torch.Tensor],
 
 
 def _acc_dtype_from(sv: torch.Tensor) -> torch.dtype:
-    # floats always accumulate in f64: a prefix-sum difference amplifies
-    # rounding by the PREFIX magnitude; results cast back per group
+    # floats accumulate in f64; results cast back per group
     return torch.float64 if sv.is_floating_point() else torch.int64
+
+
+class GroupSums:
+    """Per-group sums of key-sorted rows, built once for a grouping and
+    applied to each value column. The groups are contiguous from row 0,
+    ``lengths`` rows each (``n_rows`` in all), ``seg`` holds each row's
+    group id, and rows past ``n_rows`` are ignored.
+
+    A float group adds only its own rows, in a fixed order, in one of two
+    plans chosen from the group sizes:
+
+      * groups of ``_LARGE`` rows or more on average (q1's six groups of
+        60M rows): each group is cut at every ``_PIECE``-th row of the
+        table, ``segment_reduce`` sums the pieces, then each group's
+        pieces;
+      * smaller groups (a groupby on order keys): rows are cut into blocks
+        of ``_BLOCK``, a segmented scan of log2(_BLOCK) steps sums each
+        group's piece of each block (a step adds a row's partner only when
+        both lie in one group), and a group that spans blocks adds its
+        pieces with ``segment_reduce``; one launch a group would cost
+        more than the scan.
+
+    Either way the same input gives the same bits on every run, and a
+    group adds only its own rows: a term of a group of m rows goes through
+    at most m - 1 additions, so the error is within (m - 1)·eps·Σ_group|x|
+    whatever the plan, never a prefix over the table. The depth is far
+    less in the blocks plan (log2(_BLOCK) scan steps, then its pieces), but
+    ``segment_reduce`` adds a thread's items one after another, so the
+    pieces plan (up to _PIECE - 1 within a piece, then the group's pieces:
+    ~58k for q1) keeps no bound of log2 depth. An integer group is exact
+    as a difference of prefix sums."""
+
+    def __init__(self, seg: torch.Tensor, lengths: torch.Tensor, n_rows: int):
+        self.seg, self.lengths, self.n_rows = seg, lengths, n_rows
+        self._plan = None
+
+    def _pieces_plan(self):
+        n, dev = self.n_rows, self.seg.device
+        starts = torch.cumsum(self.lengths, 0) - self.lengths
+        cuts = torch.unique(torch.cat([starts, torch.arange(0, n, _PIECE, device=dev)]))
+        owner = torch.searchsorted(starts, cuts, right=True) - 1
+        return ("pieces", torch.diff(cuts, append=cuts.new_full((1,), n)),
+                torch.bincount(owner, minlength=self.lengths.numel()))
+
+    def _blocks_plan(self):
+        n, B = self.n_rows, _BLOCK
+        nb = -(-n // B)
+        ss = torch.nn.functional.pad(self.seg[:n], (0, nb * B - n), value=-1).view(nb, B)
+        same = [ss[:, d:] == ss[:, :-d] for d in _STEPS]
+        last = torch.ones_like(ss, dtype=torch.bool)
+        last[:, :-1] = ss[:, 1:] != ss[:, :-1]
+        ends = torch.nonzero((last & (ss >= 0)).reshape(-1)).squeeze(1)
+        pseg = ss.reshape(-1)[ends]
+        npieces = torch.bincount(pseg, minlength=self.lengths.numel())
+        single = npieces[pseg] == 1
+        one_src = torch.nonzero(single).squeeze(1)
+        multi_grp = torch.nonzero(npieces > 1).squeeze(1)
+        return ("blocks", nb, same, ends, one_src, pseg[one_src],
+                torch.nonzero(~single).squeeze(1), multi_grp, npieces[multi_grp])
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        n_groups, n = self.lengths.numel(), self.n_rows
+        if n_groups == 0:
+            return x.new_zeros(0)
+        if not x.is_floating_point():
+            hi = tiled_cumsum(x[:n])[torch.cumsum(self.lengths, 0) - 1]
+            return hi - torch.cat([hi.new_zeros(1), hi[:-1]])
+        if self._plan is None:
+            self._plan = (self._pieces_plan() if n >= _LARGE * n_groups
+                          else self._blocks_plan())
+        if self._plan[0] == "pieces":
+            _, piece_len, per_group = self._plan
+            pieces = torch.segment_reduce(x[:n], "sum", lengths=piece_len)
+            return torch.segment_reduce(pieces, "sum", lengths=per_group)
+        _, nb, same, ends, one_src, one_dst, multi_src, multi_grp, multi_len = self._plan
+        xs = x.new_zeros(nb * _BLOCK)
+        xs[:n] = x[:n]  # a copy: the scan below runs in place
+        xs = xs.view(nb, _BLOCK)
+        for d, m in zip(_STEPS, same):
+            xs[:, d:] += torch.where(m, xs[:, :-d], 0.0)
+        pieces = xs.reshape(-1)[ends]
+        out = x.new_zeros(n_groups)
+        out[one_dst] = pieces[one_src]
+        if multi_grp.numel():
+            out[multi_grp] = torch.segment_reduce(pieces[multi_src], "sum",
+                                                  lengths=multi_len)
+        return out
 
 
 def _reducible(sv: torch.Tensor):
@@ -172,33 +267,30 @@ def _as_acc(sv: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
     return sv.to(acc)
 
 
-def build_scan_arrays(sv, svalid, act, newgrp, seg, n_groups, kset) -> Dict[str, torch.Tensor]:
-    """Per-value-column arrays over KEY-SORTED rows: ``cs_*`` are prefix
-    scans read at group boundaries, the rest are per-group reductions
-    (length n_groups). ``seg`` is each row's group id, ``n_groups`` for
-    inactive rows (an overflow segment)."""
+def build_scan_arrays(sv, svalid, act, seg, n_groups, sums: GroupSums,
+                      kset) -> Dict[str, torch.Tensor]:
+    """Per-group arrays (length n_groups) of one value column over
+    KEY-SORTED rows, active rows first: ``g_*`` are sums (``sums``, the
+    grouping's GroupSums), the rest per-group reductions; ``sv`` and
+    ``valid`` are the sorted rows. ``seg`` is each row's group id,
+    ``n_groups`` for inactive rows (an overflow segment)."""
     valid = act if svalid is None else act & svalid
     nseg = n_groups + 1
     rowpos = torch.arange(sv.shape[0], device=sv.device)
     arrs: Dict[str, torch.Tensor] = {"sv": sv, "valid": valid}
-    arrs["cs_cnt"] = tiled_cumsum(valid)
+    arrs["g_cnt"] = sums(valid.to(torch.int64))
     if kset & {"sum", "mean", "var", "std", "m2", "sum_of_squares"}:
         acc = _acc_dtype_from(sv)
         x = torch.where(valid, _as_acc(sv, acc), torch.zeros((), dtype=acc,
                                                               device=sv.device))
-        arrs["cs_sum"] = tiled_cumsum(x)
+        arrs["g_sum"] = sums(x)
         if "sum_of_squares" in kset:
-            arrs["cs_sos"] = tiled_cumsum(x * x)
-    if "varc" in kset:  # sentinel kind added by ops/sortgroup.py
-        # single-pass var for the compaction lane: scans of x-K and (x-K)^2
-        # with K = the GLOBAL mean (group variance is shift-invariant, and
-        # centering kills most of the sum-of-squares cancellation)
-        xf = torch.where(valid, sv.to(torch.float64), 0.0)
-        nv = valid.sum().clamp(min=1)
-        K = xf.sum() / nv
-        xc = torch.where(valid, xf - K, 0.0)
-        arrs["cs_sumc"] = tiled_cumsum(xc)
-        arrs["cs_sosc"] = tiled_cumsum(xc * xc)
+            arrs["g_sos"] = sums(x * x)
+        if kset & {"var", "std", "m2"}:
+            # two-pass M2 (reference: group_m2.cu): center by the group mean
+            mean = arrs["g_sum"].to(torch.float64) / arrs["g_cnt"].clamp(min=1)
+            c = torch.where(valid, sv.to(torch.float64) - _at_group(mean, seg), 0.0)
+            arrs["g_m2"] = sums(c * c)
     if "product" in kset:
         acc = _acc_dtype_from(sv)
         x = torch.where(valid, _as_acc(sv, acc), torch.ones((), dtype=acc,
@@ -230,18 +322,11 @@ def build_scan_arrays(sv, svalid, act, newgrp, seg, n_groups, kset) -> Dict[str,
     return arrs
 
 
-def _boundaries(newgrp: torch.Tensor, n_active: int):
-    """Per-group (start, end) sorted-row indices, in key order."""
+def group_starts(newgrp: torch.Tensor, n_active: int):
+    """(starts, lengths): each group's first sorted row and its row count,
+    in key order."""
     starts = torch.nonzero(newgrp).squeeze(1)
-    ends = torch.cat([starts[1:] - 1,
-                      torch.full((1,), n_active - 1, device=starts.device)])
-    return starts, ends[: starts.shape[0]]
-
-
-def _diff_at(cs, starts, ends):
-    lo = torch.where(starts > 0, cs[(starts - 1).clamp(min=0)],
-                     torch.zeros((), dtype=cs.dtype, device=cs.device))
-    return cs[ends] - lo
+    return starts, torch.diff(starts, append=starts.new_full((1,), n_active))
 
 
 def _value_columns(tbl: Table, keys, aggs):
@@ -291,51 +376,47 @@ def fast_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool) -> Op
     scode, pos = torch.sort(torch.where(active, slot, sentinel), stable=True)
     act = scode < sentinel
     newgrp, seg, n_groups, n_active = _group_ids(scode, act)
+    starts, lengths = group_starts(newgrp, n_active)
+    sums = GroupSums(seg, lengths, n_active)
 
     vcols, kinds, agg_vidx = _value_columns(tbl, keys, aggs)
     arrs_by_col = []
     for c, kset in zip(vcols, kinds):
         sval = c.validity[pos] if c.validity is not None else None
-        arrs_by_col.append(build_scan_arrays(c.data[pos], sval, act, newgrp,
-                                             seg, n_groups, kset))
-    starts, ends = _boundaries(newgrp, n_active)
+        arrs_by_col.append(build_scan_arrays(c.data[pos], sval, act, seg, n_groups,
+                                             sums, kset))
 
     out = decode_keys(keys, kcols, plan, scode[starts], n_groups)
     for spec, vidx in zip(aggs, agg_vidx):
         out[spec.out_name] = _finish_agg(spec, arrs_by_col[vidx], vcols[vidx],
-                                         starts, ends, seg, pos, n_groups)
+                                         lengths, seg, pos, n_groups)
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})
 
 
-def _finish_agg(spec, arrs, vcol, starts, ends, seg, pos, n_groups) -> Column:
+def _finish_agg(spec, arrs, vcol, lengths, seg, pos, n_groups) -> Column:
     kind = spec.kind
-    cnt = _diff_at(arrs["cs_cnt"], starts, ends)
+    cnt = arrs["g_cnt"]
     validity = cnt > 0
 
     def col(dt, data, v=validity, dictionary=None):
         return padded_column(dt, data, v, n_groups, dictionary)
 
     if kind == "size":
-        return col(dtypes.int64, ends - starts + 1, None)
+        return col(dtypes.int64, lengths, None)
     if kind == "count":
         return col(dtypes.int64, cnt, None)
 
-    if kind in ("sum", "mean", "var", "std", "m2", "sum_of_squares"):
-        if kind == "sum_of_squares":
-            s2 = _diff_at(arrs["cs_sos"], starts, ends)
-            return col(_dtype_of(s2), s2)
-        s = _diff_at(arrs["cs_sum"], starts, ends)
-        if kind == "sum":
-            if vcol.dtype.is_floating and vcol.dtype.bits <= 32:
-                return col(dtypes.float32, s.to(torch.float32))
-            return col(_dtype_of(s), s)
-        mean = s.to(torch.float64) / cnt.clamp(min=1)
-        if kind == "mean":
-            return col(dtypes.float64, mean)
-        # two-pass M2 (reference: group_m2.cu): center by the group mean
-        centered = arrs["sv"].to(torch.float64) - _at_group(mean, seg)
-        x = torch.where(arrs["valid"], centered * centered, 0.0)
-        m2 = _diff_at(tiled_cumsum(x), starts, ends)
+    if kind == "sum_of_squares":
+        return col(_dtype_of(arrs["g_sos"]), arrs["g_sos"])
+    if kind == "sum":
+        s = arrs["g_sum"]
+        if vcol.dtype.is_floating and vcol.dtype.bits <= 32:
+            return col(dtypes.float32, s.to(torch.float32))
+        return col(_dtype_of(s), s)
+    if kind == "mean":
+        return col(dtypes.float64, arrs["g_sum"].to(torch.float64) / cnt.clamp(min=1))
+    if kind in ("var", "std", "m2"):
+        m2 = arrs["g_m2"]
         if kind == "m2":
             return col(dtypes.float64, m2)
         ddof = int(spec.param) if spec.param else 1
@@ -379,8 +460,13 @@ def _dtype_of(t: torch.Tensor):
 def _onehot_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool,
                     plan, tbits: int) -> Table:
     """One kernel pass (kernels/onehot_groupby.py) computes every slot's
-    weighted value sum and count; the occupied slots, in slot order (= key
-    order), become the groups. Counts come back exact from f64."""
+    value sum and counts; the occupied slots, in slot order (= key order),
+    become the groups. A value column with nulls goes in as two columns,
+    ``where(valid, v, 0)`` and ``valid``, so the kernel returns the valid
+    sum, the valid count and the row count (V = 2; ``where``, as a product
+    would keep a NaN under a null); one without nulls as itself (V = 1),
+    its count being the row count. The key mask is the weight. Counts
+    come back exact from f64."""
     from ..kernels.onehot_groupby import groupby_sum_count
 
     kcols = [tbl[k] for k in keys]
@@ -388,22 +474,31 @@ def _onehot_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool,
     slot, active = _make_key(kcols, plan, dropna_keys)
     gid = torch.where(active, slot.clamp(0, T - 1), -1).to(torch.int32)
     vname = next((s.column for s in aggs if s.column), None)
-    cap = kcols[0].capacity
-    vals = (tbl[vname].data if vname is not None
-            else torch.zeros(cap, dtype=torch.float32, device=slot.device))
-    out = groupby_sum_count(gid, vals[:, None], active.to(torch.float32), T)
-    grp_slot = torch.nonzero(out[:, 1] > 0.5).squeeze(1)
+    vcol = tbl[vname] if vname is not None else None
+    if vcol is None:
+        vals = torch.zeros((kcols[0].capacity, 1), dtype=torch.float32, device=slot.device)
+    elif vcol.validity is None:
+        vals = vcol.data[:, None]
+    else:
+        vals = torch.stack([torch.where(vcol.validity, vcol.data, 0.0),
+                            vcol.validity.to(torch.float32)], 1)
+    out = groupby_sum_count(gid, vals, active.to(torch.float32), T)
+    grp_slot = torch.nonzero(out[:, -1] > 0.5).squeeze(1)
     n_groups = grp_slot.shape[0]
-    sums = out[grp_slot, 0]
-    cnt = out[grp_slot, 1]
+    g = out[grp_slot]
+    sums, size = g[:, 0], g[:, -1]
+    cnt = g[:, 1] if vals.shape[1] == 2 else size
+    validity = cnt > 0.5 if vals.shape[1] == 2 else None
 
     cols = decode_keys(keys, kcols, plan, grp_slot, n_groups)
     for spec in aggs:
+        v = validity
         if spec.kind == "sum":
             data, dt = sums.to(torch.float32), dtypes.float32
         elif spec.kind == "mean":
             data, dt = sums / cnt.clamp(min=1.0), dtypes.float64
-        else:  # count, size
-            data, dt = cnt.to(torch.int64), dtypes.int64
-        cols[spec.out_name] = padded_column(dt, data, None, n_groups)
+        else:
+            data, dt, v = (cnt if spec.kind == "count" else size).to(torch.int64), \
+                dtypes.int64, None
+        cols[spec.out_name] = padded_column(dt, data, v, n_groups)
     return Table({n: cols[n] for n in list(keys) + [s.out_name for s in aggs]})

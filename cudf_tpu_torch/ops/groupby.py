@@ -4,7 +4,7 @@ Dispatch, in order:
 
   1. the one-hot kernel lane (``fastgroup._onehot_groupby``) when the keys
      pack into <= 11 code bits, every agg is sum/mean/count/size, and at
-     most one value column, f32 without nulls, is read — libcudf likewise
+     most one value column, f32 (nulls allowed), is read — libcudf likewise
      takes its shared-memory single-pass aggregation when cardinality is
      small (compute_single_pass_aggs.cuh). The reference gates this lane
      behind an opt-in switch and reaches its sort lane first;
@@ -46,8 +46,7 @@ def _onehot_plan(tbl: Table, keys: Sequence[str], aggs):
     if not all(s.kind in fastgroup.ONEHOT_KINDS for s in aggs):
         return None
     vnames = {s.column for s in aggs if s.column}
-    if len(vnames) > 1 or any(tbl[n].dtype.physical != torch.float32
-                              or tbl[n].validity is not None for n in vnames):
+    if len(vnames) > 1 or any(tbl[n].dtype.physical != torch.float32 for n in vnames):
         return None
     kcols = [tbl[k] for k in keys]
     plan = fastgroup.plan_codes(kcols, max_bits=62 - _posbits(kcols[0].capacity))

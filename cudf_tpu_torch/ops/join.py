@@ -41,7 +41,6 @@ import torch
 
 from ..core import dtypes
 from ..core.column import Column
-from ..core.dtypes import Kind
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
 from . import rowcodes
@@ -53,16 +52,20 @@ _HOWS = ("inner", "left", "right", "semi", "anti", "full")
 
 
 def _promote_keys(left: Table, lk: Sequence[str], right: Table, rk: Sequence[str]):
-    """Cast key pairs to a common dtype; unify string dictionaries."""
+    """Cast key pairs to a common dtype; unify string dictionaries and
+    categories."""
+    from ..core.categorical import is_categorical, unify_categoricals
     from .strings import unify_dictionaries
 
     lcols, rcols = [], []
     for ln, rn in zip(lk, rk):
         lc, rc = left[ln], right[rn]
-        if Kind.DICTIONARY in (lc.dtype.kind, rc.dtype.kind):
-            raise NotImplementedError(
-                "categorical join keys wait for core/categorical.py")
-        if lc.dtype.is_string or rc.dtype.is_string:
+        if is_categorical(lc) or is_categorical(rc):
+            if not (is_categorical(lc) and is_categorical(rc)):
+                raise TypeError(f"cannot join categorical key {ln!r} with {rn!r}: "
+                                "categorical keys must be categorical on both sides")
+            lc, rc = unify_categoricals([lc, rc])
+        elif lc.dtype.is_string or rc.dtype.is_string:
             if not (lc.dtype.is_string and rc.dtype.is_string):
                 raise TypeError(f"cannot join string key {ln!r} with {rn!r}")
             lc, rc = unify_dictionaries([lc, rc])
@@ -275,7 +278,14 @@ def _materialize(left_cols: Dict[str, Column], right: Table, left_on, right_on,
 
 
 def _full_join(left, right, left_on, right_on, nulls_equal, suffixes) -> Table:
-    """Full outer = left join + the unmatched right rows with a null left side."""
+    """Full outer = left join + the unmatched right rows with a null left
+    side. The keys are promoted first, so the two parts' key columns share
+    one dtype (pandas: int32 against int64 gives int64)."""
+    lcols, rcols = _promote_keys(left, left_on, right, right_on)
+    for n, c in zip(left_on, lcols):
+        left = left.with_column(n, c)
+    for n, c in zip(right_on, rcols):
+        right = right.with_column(n, c)
     lj = join(left, right, left_on, right_on, "left", nulls_equal, suffixes)
     r_only = join(right, left, right_on, left_on, "anti", nulls_equal)
     n = r_only.num_rows

@@ -6,10 +6,15 @@
      fit;
   2. one stable sort by that word (as int64 with the top bit flipped, so
      signed order is the word's unsigned order);
-  3. sums and counts are prefix scans, the order statistics per-group
-     reductions (``fastgroup.build_scan_arrays``);
-  4. the group-END rows, in key order, carry the scans to the answers,
-     which are shift-differences of adjacent ends.
+  3. sums, counts and M2 are per-group sums over the sorted rows, each
+     adding only its own group's rows in a fixed order, and the order
+     statistics per-group reductions (``fastgroup.build_scan_arrays``);
+  4. the group-END rows, in key order, carry the key words and the sizes.
+
+The reference takes a group's sum as the difference of two prefix sums
+over the whole sorted table, which spreads a NaN into every later group and
+costs a small group the precision of the running total; the sums here do
+neither.
 
 The reference also splits this path past ``SORT_OPERAND_MAX`` to cap TPU
 compile time; the GPU has no such limit and runs one path, whose results
@@ -64,78 +69,50 @@ def _make_word(kcols: Sequence[Column], plan, dropna: bool):
 
 
 def _pass1(word, vcols, kinds, tbits):
-    """Sort rows by key word; build scan arrays."""
+    """Sort rows by key word; build the per-group arrays."""
     skey, spos = torch.sort(word, stable=True)
     act = skey < (1 << tbits) + _I64_MIN
     newgrp, seg, n_groups, n_active = fastgroup._group_ids(skey, act)
+    starts, lengths = fastgroup.group_starts(newgrp, n_active)
+    sums = fastgroup.GroupSums(seg, lengths, n_active)
     arrs_by_col = []
     for c, kset in zip(vcols, kinds):
         sval = c.validity[spos] if c.validity is not None else None
         arrs_by_col.append(fastgroup.build_scan_arrays(
-            c.data[spos], sval, act, newgrp, seg, n_groups, kset))
-    return skey ^ _I64_MIN, act, newgrp, n_groups, arrs_by_col
+            c.data[spos], sval, act, seg, n_groups, sums, kset))
+    return (skey ^ _I64_MIN)[starts], n_groups, lengths, arrs_by_col
 
 
-def _shift_prev(arr, fill):
-    return torch.cat([torch.full((1,), fill, dtype=arr.dtype, device=arr.device),
-                      arr[:-1]])
-
-
-def _pass2_compact(scode, act, newgrp, arrs_by_col):
-    """Group-END rows, in sorted order (= key order), carry the key code
-    and the prefix scans; per-group reductions are already in key order."""
-    next_new = torch.ones_like(newgrp)
-    next_new[:-1] = newgrp[1:]
-    next_act = torch.zeros_like(act)
-    next_act[:-1] = act[1:]
-    end_pos = torch.nonzero(act & (next_new | ~next_act)).squeeze(1)
-    comp = {(-1, "scode"): scode[end_pos]}
-    for vidx, arrs in enumerate(arrs_by_col):
-        for aname, arr in arrs.items():
-            if aname in ("sv", "valid"):
-                continue
-            comp[(vidx, aname)] = arr[end_pos] if aname.startswith("cs_") else arr
-    return comp, end_pos
-
-
-def _finalize_body(comp, arrs_by_col, end_pos, n_groups, aggs, agg_vidx,
+def _finalize_body(gcode, arrs_by_col, lengths, n_groups, aggs, agg_vidx,
                    vcols, kcols, keynames, plan) -> Dict[str, Column]:
-    """Group answers from the compacted scan values."""
-    out = fastgroup.decode_keys(keynames, kcols, plan, comp[(-1, "scode")], n_groups)
+    """Group answers from each group's key code and per-group arrays."""
+    out = fastgroup.decode_keys(keynames, kcols, plan, gcode, n_groups)
 
-    size = end_pos - _shift_prev(end_pos, -1)
     for spec, vidx in zip(aggs, agg_vidx):
         vcol = vcols[vidx]
-        csc = comp[(vidx, "cs_cnt")]
-        cnt = csc - _shift_prev(csc, 0)
+        arrs = arrs_by_col[vidx]
+        cnt = arrs["g_cnt"]
         validity = cnt > 0
         kind = spec.kind
 
-        def diff(name):
-            cs = comp[(vidx, name)]
-            return cs - _shift_prev(cs, 0)
-
         if kind == "size":
-            data, dt, validity = size, dtypes.int64, None
+            data, dt, validity = lengths, dtypes.int64, None
         elif kind == "count":
             data, dt, validity = cnt, dtypes.int64, None
         elif kind == "sum_of_squares":
-            data = diff("cs_sos")
+            data = arrs["g_sos"]
             dt = _dtype_of(data)
         elif kind == "sum":
-            data = diff("cs_sum")
+            data = arrs["g_sum"]
             if vcol.dtype.is_floating and vcol.dtype.bits <= 32:
                 data, dt = data.to(torch.float32), dtypes.float32
             else:
                 dt = _dtype_of(data)
         elif kind == "mean":
-            data = diff("cs_sum").to(torch.float64) / cnt.clamp(min=1)
+            data = arrs["g_sum"].to(torch.float64) / cnt.clamp(min=1)
             dt = dtypes.float64
         elif kind in ("var", "std", "m2"):
-            # single-pass on globally-centered data (see build_scan_arrays):
-            # M2 = sum((x-K)^2) - (sum(x-K))^2 / n, shift-invariant in K
-            sC = diff("cs_sumc")
-            m2 = (diff("cs_sosc") - sC * sC / cnt.clamp(min=1)).clamp(min=0.0)
+            m2 = arrs["g_m2"]
             dt = dtypes.float64
             if kind == "m2":
                 data = m2
@@ -146,21 +123,21 @@ def _finalize_body(comp, arrs_by_col, end_pos, n_groups, aggs, agg_vidx,
                 validity = validity & (denom > 0)
                 data = var if kind == "var" else torch.sqrt(var)
         elif kind == "product":
-            data = comp[(vidx, "prod")]
+            data = arrs["prod"]
             dt = _dtype_of(data)
         elif kind in ("min", "max"):
-            data = comp[(vidx, "smin" if kind == "min" else "smax")]
+            data = arrs["smin" if kind == "min" else "smax"]
             dt = vcol.dtype
         elif kind in ("any", "all"):
-            data = comp[(vidx, "sany" if kind == "any" else "sall")].to(torch.bool)
+            data = arrs["sany" if kind == "any" else "sall"].to(torch.bool)
             dt = dtypes.bool_
         elif kind in ("first", "nth", "last"):
-            sv_full = arrs_by_col[vidx]["sv"]
+            sv_full = arrs["sv"]
             cap = sv_full.shape[0]
             if kind == "last":
-                idx = comp[(vidx, "slast")].clamp(0, cap - 1)
+                idx = arrs["slast"].clamp(0, cap - 1)
             else:
-                idx = comp[(vidx, "sfirst")].clamp(0, cap - 1)
+                idx = arrs["sfirst"].clamp(0, cap - 1)
                 if kind == "nth":
                     idx = (idx + int(spec.param)).clamp(0, cap - 1)
             data, dt = sv_full[idx], vcol.dtype
@@ -183,12 +160,7 @@ def sort_groupby(tbl: Table, keys: Sequence[str], aggs,
     tbits = sum(w for _, w in plan)
     word, _ = _make_word(kcols, plan, dropna_keys)
     vcols, kinds, agg_vidx = fastgroup._value_columns(tbl, keys, aggs)
-    for s, vidx in zip(aggs, agg_vidx):
-        if s.kind in ("var", "std", "m2"):
-            # sentinel: build_scan_arrays adds globally-centered scans
-            kinds[vidx].add("varc")
-    scode, act, newgrp, n_groups, arrs_by_col = _pass1(word, vcols, kinds, tbits)
-    comp, end_pos = _pass2_compact(scode, act, newgrp, arrs_by_col)
-    out = _finalize_body(comp, arrs_by_col, end_pos, n_groups, aggs, agg_vidx,
+    gcode, n_groups, lengths, arrs_by_col = _pass1(word, vcols, kinds, tbits)
+    out = _finalize_body(gcode, arrs_by_col, lengths, n_groups, aggs, agg_vidx,
                          vcols, kcols, keys, plan)
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})

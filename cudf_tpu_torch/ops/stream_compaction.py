@@ -62,6 +62,24 @@ def apply_boolean_mask(tbl: Table, mask: Column) -> Table:
     return _compact(tbl, keep)
 
 
+def filter_column(col: Column, mask: Column) -> Column:
+    """The rows of ``col`` where ``mask`` is true (a null mask row drops)."""
+    return apply_boolean_mask(Table({"c": col}), mask)["c"]
+
+
+def drop_nans(tbl: Table, keys: Optional[Sequence[str]] = None) -> Table:
+    """Drop rows with a NaN in any float column among ``keys`` (default:
+    every column)."""
+    names = list(keys) if keys is not None else tbl.names
+    first = tbl[names[0]]
+    keep = first.bounds_mask()
+    for n in names:
+        c = tbl[n]
+        if c.dtype.is_floating:
+            keep = keep & ~torch.isnan(c.data)
+    return _compact(tbl, keep)
+
+
 def drop_nulls(tbl: Table, keys: Optional[Sequence[str]] = None,
                keep_threshold: Optional[int] = None) -> Table:
     """cudf::drop_nulls: keep rows with at least ``keep_threshold`` (default:

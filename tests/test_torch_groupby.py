@@ -7,6 +7,8 @@ rtol 1e-9; f32 sums rtol 1e-5, because the reference's lanes round f32
 differently. Against the reference's Pallas lane, whose mean divides an
 f32 sum, the mean too is held to rtol 1e-5.
 """
+import math
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -320,18 +322,57 @@ def test_entry_step_matches_reference():
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-def test_onehot_lane_keeps_nan_in_its_group(monkeypatch):
-    """A NaN value poisons only its own group's sum in the port's one-hot
-    lane. The reference's lanes spread it: the one-hot matmul multiplies
-    the NaN by the zeros of every other group, and the sort lanes' prefix
-    sums carry it into every later group."""
+@pytest.mark.parametrize("lane", ["onehot", "sort"])
+def test_onehot_lane_keeps_nan_in_its_group(monkeypatch, lane):
+    """A NaN value poisons only its own group's sum, in the port's one-hot
+    lane (f32 values) and in its code-sort lane (f64 values), whose sums
+    add each group's own rows. The reference's lanes spread it: the
+    one-hot matmul multiplies the NaN by the zeros of every other group,
+    and the sort lanes' prefix sums carry it into every later group."""
+    dt = np.float32 if lane == "onehot" else np.float64
     df = pd.DataFrame({"k": np.array([0, 1, 2, 0, 1, 2], np.int32),
-                       "v": np.array([1, np.nan, 3, 4, 5, 6], np.float32)})
-    onehot = Spy(monkeypatch, tfast, "_onehot_groupby")
+                       "v": np.array([1, np.nan, 3, 4, 5, 6], dt)})
+    spy = (Spy(monkeypatch, tfast, "_onehot_groupby") if lane == "onehot"
+           else Spy(monkeypatch, tsort, "sort_groupby"))
     got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["k"],
                                 [tgb.AggSpec("v", "sum", "s")]).to_pandas()
-    assert onehot.calls == 1
-    np.testing.assert_array_equal(got["s"].to_numpy(), np.array([5, np.nan, 9], np.float32))
+    assert spy.calls == 1
+    np.testing.assert_array_equal(got["s"].to_numpy(), np.array([5, np.nan, 9], dt))
+
+
+@pytest.mark.parametrize("lane", ["sort", "fast"])
+def test_a_small_group_keeps_its_precision_after_a_large_one(monkeypatch, lane):
+    """A one-row group sorted after 10^6 rows of magnitude 10^6: its sum
+    and mean equal pandas at rtol 1e-15, because each group adds only its
+    own rows (a difference of prefix sums over the table would carry an
+    error of ~1e-4 absolute into the small group). The big group, summed
+    in another order than pandas', at rtol 1e-12; its var against numpy's
+    two-pass var at rtol 1e-12 (pandas' own var is 2.5e-11 off it here)."""
+    rng = np.random.default_rng(3)
+    n = 10**6
+    df = pd.DataFrame({"k": np.r_[np.zeros(n, np.int64), 1],
+                       "v": np.r_[1e6 + rng.random(n), 1.2345678901234567]})
+    aggs = [("sum", "sum"), ("mean", "mean"), ("var", "var")]
+    specs = [tgb.AggSpec("v", kind, out) for kind, out in aggs]
+    if lane == "fast":  # the code-sort lane that also answers argmin/argmax
+        specs.append(tgb.AggSpec("v", "argmin", "am"))
+        aggs.append(("idxmin", "am"))
+    spy = Spy(monkeypatch, tsort if lane == "sort" else tfast,
+              "sort_groupby" if lane == "sort" else "fast_groupby")
+    got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["k"],
+                                specs).to_pandas()
+    assert spy.calls == 1
+    want = df.groupby("k")["v"].agg([kind for kind, _ in aggs])
+    big = df.v.to_numpy()[:n]
+    want.loc[0, "var"] = ((big - big.mean()) ** 2).sum() / (n - 1)
+    np.testing.assert_array_equal(got["k"].to_numpy(), [0, 1])
+    for kind, out in aggs:
+        g, w = got[out].to_numpy(), want[kind].to_numpy()
+        np.testing.assert_allclose(g[0], w[0], rtol=1e-12, err_msg=kind)
+        if kind == "var":  # one row: no variance
+            assert np.isnan(g[1]) and np.isnan(w[1])
+        else:
+            np.testing.assert_allclose(g[1], w[1], rtol=1e-15, err_msg=kind)
 
 
 def _key_values(dtype, rng, n):
@@ -380,3 +421,31 @@ def test_all_true_bool_key_decodes_as_true():
         got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["k"],
                                     _aggs(specs)[1]).to_pandas()
         assert got["k"].tolist() == [True]
+
+
+@pytest.mark.parametrize("plan", ["blocks", "pieces"])
+def test_group_sums_add_each_groups_own_rows(plan):
+    """GroupSums over groups of 1 to 5,000 rows (inside one block, across
+    blocks, many blocks; small on average for the blocks plan, large for
+    the pieces plan): each float sum within 16·eps·Σ_group|x| of the exact
+    sum, the same bits on a second call, integer sums exact."""
+    rng = np.random.default_rng(9)
+    lengths = (np.r_[rng.integers(1, 4, 300), rng.integers(15, 40, 50), 5000, 1, 17]
+               if plan == "blocks" else np.r_[rng.integers(300, 3000, 20), 1, 2, 5000])
+    rng.shuffle(lengths)
+    n = int(lengths.sum())
+    x = rng.normal(size=n) * 10.0 ** rng.integers(-3, 7, n)
+    seg = np.repeat(np.arange(len(lengths)), lengths)
+    sums = tfast.GroupSums(torch.from_numpy(np.r_[seg, [len(lengths)] * 7]),
+                           torch.from_numpy(lengths), n)
+    xt = torch.from_numpy(np.r_[x, np.full(7, 1e300)])  # rows past n are ignored
+    got = sums(xt).numpy()
+    assert sums._plan[0] == plan
+    assert np.array_equal(got, sums(xt).numpy())
+    starts = np.r_[0, np.cumsum(lengths)[:-1]]
+    exact = np.array([math.fsum(x[s:s + k]) for s, k in zip(starts, lengths)])
+    bound = 16 * np.finfo(np.float64).eps * np.add.reduceat(np.abs(x), starts)
+    assert (np.abs(got - exact) <= bound).all()
+    xi = torch.from_numpy(rng.integers(-2**40, 2**40, n + 7))
+    np.testing.assert_array_equal(sums(xi).numpy(),
+                                  np.add.reduceat(xi.numpy()[:n], starts))

@@ -282,6 +282,46 @@ def test_read_text_matches_reference(tmp_path):
     np.testing.assert_array_equal(got, RIO.read_text(path, delimiter="x\n").to_numpy())
 
 
+def test_read_text_range_keeps_a_long_row_whole(tmp_path):
+    """A range reads on to its delimiter however far it is: rows of 10 B,
+    3 MiB, 10 B and 10 B split at byte 20 come back whole. The reference
+    looks only 1 MiB past a range's end and cuts the long row."""
+    path = str(tmp_path / "long.txt")
+    lines = ["a" * 9, "b" * (3 << 20), "c" * 9, "d" * 9]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    size = os.path.getsize(path)
+    whole = TIO.read_text(path, device="cpu").to_numpy().tolist()
+    parts = []
+    for rng in ((0, 20), (20, size - 20)):
+        parts += TIO.read_text(path, byte_range=rng, device="cpu").to_numpy().tolist()
+    assert parts == whole == lines
+    ref = RIO.read_text(path, byte_range=(0, 20)).to_numpy().tolist()
+    ref += RIO.read_text(path, byte_range=(20, size - 20)).to_numpy().tolist()
+    assert ref == ["a" * 9, "b" * 10, "c" * 9, "d" * 9]
+
+
+def test_a_literal_decodes_no_deferred_column(tmp_path):
+    """A literal's column takes the table's device without decoding a
+    deferred column: after each expression only the columns it names are
+    decoded."""
+    from cudf_tpu_torch.expr import expressions as TE
+
+    df = pd.DataFrame({"a": np.arange(10), "b": np.arange(10) * 0.5,
+                       "c": np.arange(10) % 3})
+    path = str(tmp_path / "abc.parquet")
+    df.to_parquet(path)
+    cases = [(TE.when(TE.col("a") > 2).then(TE.lit(1)).otherwise(TE.lit(0)),
+              np.where(df.a > 2, 1, 0), ["b", "c"]),
+             (TE.lit(1) + TE.lit(2), np.full(10, 3), ["a", "b", "c"]),
+             (TE.lit(7).cast(tt.dtypes.float64), np.full(10, 7.0), ["a", "b", "c"])]
+    for expr, want, undecoded in cases:
+        t = TIO.read_parquet(path, device="cpu")
+        got = TE.evaluate(expr, t)
+        np.testing.assert_array_equal(got.to_numpy(), want)
+        assert t.undecoded() == undecoded
+
+
 # ---------------------------------------------------------- the boundaries
 def test_readers_default_to_cuda(tmp_path):
     df = pd.DataFrame({"a": [1, 2]})
@@ -297,6 +337,8 @@ def test_readers_default_to_cuda(tmp_path):
     for call in calls:
         if torch.cuda.is_available():
             out = call()
+            if isinstance(out, tt.DataFrame):  # the top-level readers' frames
+                out = out.table
             col = out if isinstance(out, tt.Column) else out.columns[0]
             assert col.device.type == "cuda"
         else:

@@ -12,7 +12,6 @@ probe ran), a duplicate one the general sort lane (``_probe``).
 import numpy as np
 import pandas as pd
 import pytest
-import torch
 
 import cudf_tpu as ct
 from cudf_tpu.ops.binaryop import binary_op as r_binary_op
@@ -21,8 +20,6 @@ from cudf_tpu.ops.join import join as r_join
 from cudf_tpu.ops.stream_compaction import apply_boolean_mask as r_apply_boolean_mask
 
 import cudf_tpu_torch as tt
-from cudf_tpu_torch.core import dtypes as tdt
-from cudf_tpu_torch.core.column import Column as TColumn
 from cudf_tpu_torch.kernels import hashtable as tht
 from cudf_tpu_torch.ops import join as tjoin
 
@@ -173,12 +170,15 @@ def test_join_matches_reference_row_for_row(monkeypatch, name, how):
     ldf, rdf, lon, ron, nulls_equal, lanes = _case(name)
     (rl, rr), (pl, pr) = _tables(ldf, rdf)
     if (name, how) == ("dtype_promotion", "full"):
-        # the unmatched right rows keep their int64 key beside the left
-        # join's int32 key: both packages refuse to concatenate them
+        # the reference keeps the unmatched right rows' int64 key beside the
+        # left join's int32 key and refuses to concatenate them; the port
+        # promotes the key first and equals pandas
         with pytest.raises(AssertionError):
             r_join(rl, rr, lon, ron, how, nulls_equal)
-        with pytest.raises(TypeError, match="one dtype"):
-            tt.join(pl, pr, lon, ron, how, nulls_equal)
+        got = tt.join(pl, pr, lon, ron, how, nulls_equal).to_pandas()
+        want = ldf.merge(rdf, left_on=lon, right_on=ron, how="outer")
+        assert got["k"].dtype == want["k"].dtype == np.int64
+        assert_frames_equal(got, want)
         return
     want = r_join(rl, rr, lon, ron, how, nulls_equal).to_pandas()
     probe = Spy(monkeypatch, tht, "probe_table")
@@ -254,10 +254,15 @@ def test_empty_sides_match_reference():
 
 
 def test_categorical_keys_are_not_ported_yet():
-    t = tt.Table({"k": TColumn(tdt.DType(tdt.Kind.DICTIONARY, 32),
-                               torch.zeros(128, dtype=torch.int32), None, 3)})
-    with pytest.raises(NotImplementedError):
-        tt.join(t, t, ["k"], ["k"])
+    """Categorical keys are ported now (core/categorical.py): a join on
+    categoricals declared in two orders equals the reference's."""
+    left = pd.DataFrame({"k": pd.Categorical(["a", "b", "c", "a"], categories=["c", "b", "a"]),
+                         "v": [1, 2, 3, 4]})
+    right = pd.DataFrame({"k": pd.Categorical(["a", "c"], categories=["a", "c"]),
+                          "w": [10, 30]})
+    (rl, rr), (pl, pr) = _tables(left, right)
+    assert_frames_equal(tt.join(pl, pr, ["k"], ["k"]).to_pandas(),
+                        r_join(rl, rr, ["k"], ["k"]).to_pandas())
 
 
 def test_unknown_how_raises():
