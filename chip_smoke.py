@@ -80,6 +80,25 @@ Phases (each prints a line; any failure raises and exits nonzero):
                phase 11, ctt.read_parquet(p)["v"].sum() decoding only v and
                ctt.read_parquet(p).dropna().groupby("k").agg(mean) with 3M
                groups against numpy.
+ 13. out-of-core — beside the phases whose data it reuses, under budgets
+               (utils.hbm.HbmBudget) below the data they govern: after phase
+               4, phase 3's columns written to parquet in 1M-row row groups
+               and read through PartitionedFrame.read_parquet_chunked under a
+               budget of a quarter of their bytes with the native
+               PartitionStore installed, the README query run on the spilled
+               partitions (map_partitions(drop_nulls), groupby_agg) equal to
+               phase 3's answer, with spills, one-hot launches for every
+               partition and a peak allocation below the columns' bytes; and
+               drop_nulls of phase 3's table on its chunked branch; after
+               phase 5, join_small of 16 spilled lineitem partitions with
+               the filtered orders, equal to the oracle, one probe launch a
+               partition; after phase 8, PartitionedFrame.sort_values of the
+               60M-row sort table in 32 spilled partitions, ascending and
+               descending, and sort_by_key on its chunked branch, each equal
+               to the in-memory sort exactly; inside phase 9, q1's groupby on
+               its chunked branch and q1, q3, q5 and q6 through
+               execute_partitioned (lineitem in 4 partitions, broadcast and
+               shuffle joins), each equal to IR.execute's answer.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -625,7 +644,7 @@ def main_path(gpu: str, df):
         f"keys and counts exact, sum/mean rtol 1e-5")
     log(f"main: [{gpu}] warm groupby profile: "
         + device_breakdown(lambda: groupby_aggregate(kept, KEYS, aggs)))
-    return tbl, launches
+    return tbl, launches, out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1183,9 +1202,10 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
 
 
 # ---------------------------------------------------------------- phase 8
-def sort_phase(gpu: str) -> None:
+def sort_phase(gpu: str):
     """bench.py's sort shape at SF10 size: sort_by_key([k1, k2]) against a
-    stable numpy lexsort (NaN last, as the port orders it)."""
+    stable numpy lexsort (NaN last, as the port orders it). Returns the
+    table and its sorted columns on the host."""
     import torch
 
     from cudf_tpu_torch import Table
@@ -1218,6 +1238,7 @@ def sort_phase(gpu: str) -> None:
         f"{warm_s * 1e3:.2f} ms (host clock); data and oracle {data_s:.1f} s")
     log(f"sort: [{gpu}] warm sort profile: "
         + device_breakdown(lambda: sort_by_key(tbl, ["k1", "k2"])))
+    return tbl, got
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1283,10 +1304,13 @@ def _profile_line(profile) -> str:
     return "; ".join(f"{name} {s * 1e3:.2f} ms ({rows} rows)" for name, s, rows in profile)
 
 
-def tpch_phase(gpu: str) -> int:
+def tpch_phase(gpu: str):
     """TPC-H q1, q3, q5 and q6 through the IR executor at SF10
-    (benchmarks/tpch.py's gen_tables(60M)), each against pandas. Returns
-    the probe kernel's launches in the queries' first and warm runs."""
+    (benchmarks/tpch.py's gen_tables(60M)), each against pandas, then the
+    out-of-core phase's chunked groupby and partitioned TPC-H on the same
+    tables. Returns the probe kernel's launches in the queries' first and
+    warm runs, the host tables, q3's answer, the probe launches of the
+    partitioned runs and their seconds."""
     import torch
 
     from cudf_tpu_torch import Table
@@ -1340,6 +1364,10 @@ def tpch_phase(gpu: str) -> int:
         log(f"tpch {q}: [{gpu}] warm profile: "
             + device_breakdown(lambda: IR.execute(plan)))
     datetime_checks(gpu, host["lineitem"], dev["lineitem"])
+    t_ooc = time.perf_counter()
+    ooc_groupby(gpu, dev["lineitem"])
+    ooc_launches = ooc_tpch(gpu, plans, runs)
+    ooc_s = time.perf_counter() - t_ooc
     del dev, plans
     torch.cuda.empty_cache()
 
@@ -1351,7 +1379,7 @@ def tpch_phase(gpu: str) -> int:
     log(f"tpch: q1, q3, q5 and q6 match pandas (assert_frame_equal rtol 1e-6: keys, "
         f"counts and row order exact); pandas oracles {time.perf_counter() - t0:.1f} s "
         f"(host clock)")
-    return probe_launches, host, runs["q3"][0]
+    return probe_launches, host, runs["q3"][0], ooc_launches, ooc_s
 
 
 DT_FIELDS = ["year", "month", "day", "weekday", "day_of_year", "microsecond"]
@@ -1431,6 +1459,31 @@ def synced(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def peaked(fn):
+    """(fn(), seconds, peak bytes): the host clock as ``synced`` reads it,
+    and the peak of torch.cuda.max_memory_allocated above the allocation
+    before the call (what fn allocated at most at once, its output
+    included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, s = synced(fn)
+    return out, s, torch.cuda.max_memory_allocated() - start
+
+
+def check_peaks(what: str, chunked_peak: int, unchunked_peak: int, nbytes: int) -> str:
+    """The chunked branch exists to hold less on the card: its peak must be
+    below the unchunked op's. Returns the line's text for both."""
+    text = (f"peak allocation chunked {chunked_peak} bytes ({chunked_peak / nbytes:.3f} of the "
+            f"input's {nbytes}), unchunked {unchunked_peak} bytes "
+            f"({unchunked_peak / nbytes:.3f}), ratio {chunked_peak / unchunked_peak:.3f}")
+    if chunked_peak >= unchunked_peak:
+        raise AssertionError(f"{what}: the chunked branch's {text}: not lower")
+    return text
 
 
 def strings_phase(gpu: str) -> None:
@@ -1609,6 +1662,408 @@ def io_phase(gpu: str, host, q3_in_memory, tmp: str):
     return launches, frame_s
 
 
+# --------------------------------------------------------------- phase 13
+# The out-of-core phase runs beside the phases whose data it reuses: the
+# streamed README groupby and the chunked compaction on phase 3's frame and
+# table, the partitioned Q3 join on phase 5's tables, the out-of-core and
+# chunked sorts on phase 8's table, the chunked groupby and the partitioned
+# TPC-H on phase 9's. Its budgets are below the data they govern, so
+# partitions spill to the host and come back, and the chunked ops chunk.
+OOC_ROW_GROUP = 1 << 20      # rows in a parquet row group and a partition
+OOC_JOIN_PARTS = 16          # partitions of the 60M lineitem rows (Q3 join)
+OOC_SORT_PARTS = 32          # partitions of bench.py's sort table
+# the partitioned TPC-H: 1 GiB partitions split SF10 lineitem (3.84 GB by
+# the lowering's estimate) into 4; orders (0.48 GB) is broadcast, lineitem
+# shuffled
+OOC_TPCH_CONFIG = (1 << 30, 1 << 30)
+
+
+def ooc_setup(budget_bytes: int, store_dir=None):
+    """Install an HbmBudget of ``budget_bytes`` and, with ``store_dir``, a
+    native PartitionStore of as many host bytes spilling to files there.
+    Returns (budget, store); ``ooc_teardown`` removes both."""
+    from cudf_tpu_torch.parallel import partitioned as P
+    from cudf_tpu_torch.utils.hbm import HbmBudget, set_hbm_budget
+    from cudf_tpu_torch.utils.native import PartitionStore
+
+    budget = HbmBudget(budget_bytes)
+    set_hbm_budget(budget)
+    store = None
+    if store_dir is not None:
+        store = PartitionStore(budget_bytes=budget_bytes, spill_dir=store_dir)
+        P.set_partition_store(store)
+    for key in P.transfers:
+        P.transfers[key] = 0
+    return budget, store
+
+
+def ooc_teardown(store) -> None:
+    from cudf_tpu_torch.parallel import partitioned as P
+    from cudf_tpu_torch.utils.hbm import set_hbm_budget
+
+    set_hbm_budget(None)
+    P.set_partition_store(None)
+    if store is not None:
+        store.close()
+
+
+def _transfers_line() -> str:
+    from cudf_tpu_torch.parallel.partitioned import transfers as t
+
+    return (f"spill copies to the host {t['to_host_bytes'] / 1e9:.3f} GB in "
+            f"{t['to_host_s']:.3f} s, un-spill copies to the card "
+            f"{t['to_device_bytes'] / 1e9:.3f} GB in {t['to_device_s']:.3f} s (synchronous, "
+            f"pageable)")
+
+
+def ooc_readme(gpu: str, df, tbl, in_memory, tmp: str):
+    """E.1: phase 3's columns written to parquet in 1M-row row groups, read
+    back through PartitionedFrame.read_parquet_chunked under a budget of a
+    quarter of their bytes on the card, with the native store installed,
+    and the README query run on them: map_partitions(drop_nulls) then
+    groupby_agg. Groups and counts equal phase 3's answer exactly, sums
+    and means rtol 1e-5 (f32 partial sums, the port's groupby tolerance).
+    Returns the one-hot launches, the budget's bytes and the seconds."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    from cudf_tpu_torch import AggSpec, drop_nulls
+    from cudf_tpu_torch.kernels import onehot_groupby as k
+    from cudf_tpu_torch.parallel.partitioned import PartitionedFrame
+    from cudf_tpu_torch.utils.hbm import table_device_bytes
+
+    t_start = time.perf_counter()
+    cols = KEYS + ["l_extendedprice"]
+    path = os.path.join(tmp, "readme.parquet")
+    pq.write_table(pa.Table.from_pandas(df[cols], preserve_index=False), path,
+                   row_group_size=OOC_ROW_GROUP)
+    write_s = time.perf_counter() - t_start
+    aggs = [AggSpec("l_extendedprice", "sum", "sum_price"),
+            AggSpec("l_extendedprice", "mean", "avg_price"),
+            AggSpec("l_extendedprice", "count", "count_price"),
+            AggSpec("", "size", "count_order")]
+    in_memory_bytes = table_device_bytes(tbl.select(cols))
+    budget, store = ooc_setup(in_memory_bytes // 4, os.path.join(tmp, "spill"))
+    try:
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k.groupby_sum_count.launches = 0
+        t0 = time.perf_counter()
+        pf = PartitionedFrame.read_parquet_chunked(path, rows_per_chunk=OOC_ROW_GROUP)
+        t1 = time.perf_counter()
+        out = pf.map_partitions(drop_nulls).groupby_agg(KEYS, aggs).to_pandas()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() - start
+        launches = k.groupby_sum_count.launches
+        stats, store_stats, moved = budget.stats(), store.stats(), _transfers_line()
+        n_parts = pf.npartitions
+        del pf
+    finally:
+        ooc_teardown(store)
+    log(f"ooc readme: [{gpu}] {len(df)} rows of {cols} written to parquet in "
+        f"{OOC_ROW_GROUP}-row row groups in {write_s:.1f} s; read_parquet_chunked -> "
+        f"{n_parts} spilled partitions {t1 - t0:.3f} s, map_partitions(drop_nulls) + "
+        f"groupby_agg + to_pandas {t2 - t1:.3f} s (host clock, synchronized); one-hot "
+        f"kernel launches {launches}")
+    log(f"ooc readme: [{gpu}] budget {stats['budget']} bytes (a quarter of the columns' "
+        f"{in_memory_bytes} bytes in memory): spill_count {stats['spill_count']}, "
+        f"spilled_bytes {stats['spilled_bytes']}, admitted {stats['admitted']}; native "
+        f"store {store_stats}; {moved}")
+    log(f"ooc readme: [{gpu}] peak device allocation above the phase's start {peak} bytes "
+        f"({peak / in_memory_bytes:.3f} of the columns' {in_memory_bytes} bytes in memory)")
+    if stats["spill_count"] <= 0:
+        raise AssertionError("ooc readme: no partition was spilled")
+    if launches < n_parts:
+        raise AssertionError(f"ooc readme: {launches} one-hot launches for {n_parts} "
+                             f"partitions")
+    if peak >= in_memory_bytes:
+        raise AssertionError(f"ooc readme: peak {peak} bytes is not below the in-memory "
+                             f"{in_memory_bytes}")
+    np.testing.assert_array_equal(out[KEYS].to_numpy(np.int64),
+                                  in_memory[KEYS].to_numpy(np.int64))
+    for c in ("count_price", "count_order"):
+        np.testing.assert_array_equal(out[c].to_numpy(), in_memory[c].to_numpy())
+    for c in ("sum_price", "avg_price"):
+        np.testing.assert_allclose(out[c], in_memory[c], rtol=1e-5)
+    log(f"ooc readme: equals phase 3's in-memory answer: {len(out)} groups, keys and "
+        f"counts exact, sum and mean rtol 1e-5")
+    return launches, in_memory_bytes // 4, time.perf_counter() - t_start
+
+
+def ooc_compaction(gpu: str, tbl) -> float:
+    """E.4: drop_nulls of phase 3's table under a budget of half its bytes
+    (its working set is twice them): the chunked branch, rows exactly the
+    unchunked drop_nulls', its peak allocation below the unchunked one's."""
+    import torch
+
+    from cudf_tpu_torch import drop_nulls
+    from cudf_tpu_torch.ops import chunked
+    from cudf_tpu_torch.utils.hbm import table_device_bytes
+
+    t_start = time.perf_counter()
+    want, want_s, want_peak = peaked(lambda: drop_nulls(tbl))
+    nbytes = table_device_bytes(tbl)
+    runs = chunked.runs["compaction"]
+    _, store = ooc_setup(nbytes // 2)
+    try:
+        got, s, peak = peaked(lambda: drop_nulls(tbl))
+        rows = chunked.chunk_rows(tbl, chunked.COMPACT_FACTOR)
+    finally:
+        ooc_teardown(store)
+    if chunked.runs["compaction"] != runs + 1:
+        raise AssertionError("ooc compaction: drop_nulls did not take the chunked branch")
+    n = want.num_rows
+    if got.num_rows != n:
+        raise AssertionError(f"ooc compaction: {got.num_rows} rows, unchunked {n}")
+    for name, c in want:
+        g = got[name]
+        if not torch.equal(g.data[:n], c.data[:n]) or \
+                (c.validity is None) != (g.validity is None) or \
+                (c.validity is not None and not torch.equal(g.validity[:n], c.validity[:n])):
+            raise AssertionError(f"ooc compaction: column {name} differs from unchunked")
+    log(f"ooc compaction: [{gpu}] drop_nulls of {tbl.num_rows} rows under a budget of "
+        f"{nbytes // 2} bytes: chunked ({rows}-row chunks) in {s * 1e3:.2f} ms, unchunked "
+        f"{want_s * 1e3:.2f} ms (host clock, synchronized), {n} rows equal to the unchunked "
+        f"drop_nulls exactly; {check_peaks('ooc compaction', peak, want_peak, nbytes)}")
+    # what every sort, groupby and compaction now pays to decide, with no
+    # budget installed, and what asking the card would cost each of them
+    check_us = host_us(lambda: chunked.chunk_rows(tbl, chunked.COMPACT_FACTOR))
+    query_us = host_us(lambda: torch.cuda.mem_get_info(), iters=200)
+    log(f"ooc compaction: [{gpu}] the chunk check with no budget installed: "
+        f"{check_us:.2f} us a call on the host (unchunked: "
+        f"{chunked.chunk_rows(tbl, chunked.COMPACT_FACTOR) is None}); "
+        f"torch.cuda.mem_get_info, which it skips below an eighth of the card: "
+        f"{query_us:.2f} us a call")
+    return time.perf_counter() - t_start
+
+
+def ooc_join(gpu: str, li, filtered, want, budget_bytes: int):
+    """E.2: lineitem's [l_orderkey, l_extendedprice] in OOC_JOIN_PARTS
+    spilled partitions under E.1's budget, join_small with the filtered
+    orders: the oracle's rows as a multiset, one probe launch a partition.
+    Returns the probe launches and the seconds."""
+    import torch
+
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.parallel.partitioned import PartitionedFrame
+
+    t_start = time.perf_counter()
+    n = li.num_rows
+    step = -(-n // OOC_JOIN_PARTS)
+    budget, store = ooc_setup(budget_bytes)
+    try:
+        t0 = time.perf_counter()
+        pf = PartitionedFrame.from_tables(li.slice(s, step) for s in range(0, n, step))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ht.probe_table.launches = 0
+        out = pf.join_small(filtered, ["l_orderkey"], ["o_orderkey"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = ht.probe_table.launches
+        got = {c: [] for c in JOIN_COLS}
+        for p in out._parts:
+            for c, v in _columns(p.get(), JOIN_COLS).items():
+                got[c].append(v)
+        stats, moved = budget.stats(), _transfers_line()
+        n_parts = pf.npartitions
+        del pf, out
+    finally:
+        ooc_teardown(store)
+    got = {c: np.concatenate(v) for c, v in got.items()}
+    log(f"ooc join: [{gpu}] {n} lineitem rows in {n_parts} spilled partitions "
+        f"{t1 - t0:.3f} s; join_small with {filtered.num_rows} filtered orders -> "
+        f"{len(got['l_orderkey'])} rows, spilled, {t2 - t1:.3f} s (host clock, "
+        f"synchronized); probe launches {launches}; budget {budget_bytes} bytes: "
+        f"spill_count {stats['spill_count']}, spilled_bytes {stats['spilled_bytes']}; "
+        f"{moved}")
+    if launches != n_parts:
+        raise AssertionError(f"ooc join: {launches} probe launches for {n_parts} partitions")
+    if stats["spill_count"] <= 0:
+        raise AssertionError("ooc join: no partition was spilled")
+    assert_rows(got, want, "ooc join", True)
+    log(f"ooc join: equals the oracle as a multiset ({len(got['l_orderkey'])} rows, every "
+        f"column exact)")
+    return launches, time.perf_counter() - t_start
+
+
+def _sorted_host(tbl, cols=("k1", "k2", "v")) -> dict:
+    return {c: tbl[c].data[: tbl.num_rows].cpu().numpy() for c in cols}
+
+
+def _frame_host(pf, cols=("k1", "k2", "v")) -> dict:
+    parts = [_sorted_host(p.get(), cols) for p in pf._parts]
+    return {c: np.concatenate([p[c] for p in parts]) for c in cols}
+
+
+def _assert_sorted_equal(got: dict, want: dict, what: str) -> None:
+    for c in want:
+        if len(got[c]) != len(want[c]):
+            raise AssertionError(f"{what}: {len(got[c])} rows, in memory {len(want[c])}")
+        if not np.array_equal(got[c], want[c], equal_nan=True):
+            raise AssertionError(f"{what}: column {c} differs from the in-memory sort")
+
+
+def ooc_sort(gpu: str, tbl, ascending: dict) -> float:
+    """E.3 and E.4 on bench.py's sort table: PartitionedFrame.sort_values
+    over OOC_SORT_PARTS spilled partitions under a budget of a quarter of
+    the table's bytes, ascending and descending, each equal to the
+    in-memory sort_by_key exactly with every row kept; then sort_by_key
+    under a budget of that quarter (below its working set of four times
+    the table): the chunked branch, equal exactly, its peak allocation
+    below the unchunked sort's."""
+    import torch
+
+    from cudf_tpu_torch.ops import chunked
+    from cudf_tpu_torch.ops.sorting import sort_by_key
+    from cudf_tpu_torch.parallel.partitioned import PartitionedFrame
+    from cudf_tpu_torch.utils.hbm import set_hbm_budget, table_device_bytes
+
+    t_start = time.perf_counter()
+    keys = ["k1", "k2"]
+    descending = _sorted_host(sort_by_key(tbl, keys, descending=True))
+    nbytes = table_device_bytes(tbl)
+    n = tbl.num_rows
+    step = -(-n // OOC_SORT_PARTS)
+    budget, store = ooc_setup(nbytes // 4)
+    try:
+        pf = PartitionedFrame.from_tables(tbl.slice(s, step) for s in range(0, n, step))
+        times = {}
+        for name, desc, want in (("ascending", False, ascending),
+                                 ("descending", True, descending)):
+            out, times[name] = synced(lambda: pf.sort_values(keys, desc))
+            _assert_sorted_equal(_frame_host(out), want, f"ooc sort {name}")
+            times[name + " partitions"] = out.npartitions
+            del out
+        stats, moved = budget.stats(), _transfers_line()
+        del pf
+        set_hbm_budget(None)
+        unchunked, unchunked_s, unchunked_peak = peaked(lambda: sort_by_key(tbl, keys))
+        del unchunked
+        set_hbm_budget(budget)
+        runs = chunked.runs["sort"]
+        got, chunked_s, chunked_peak = peaked(lambda: sort_by_key(tbl, keys))
+        rows = chunked.chunk_rows(tbl, chunked.SORT_FACTOR)
+    finally:
+        ooc_teardown(store)
+    log(f"ooc sort: [{gpu}] PartitionedFrame.sort_values([k1, k2]) over {n} rows in "
+        f"{OOC_SORT_PARTS} spilled partitions, budget {nbytes // 4} bytes (a quarter of "
+        f"the table's {nbytes}): ascending {times['ascending']:.3f} s -> "
+        f"{times['ascending partitions']} partitions, descending {times['descending']:.3f} s "
+        f"-> {times['descending partitions']} partitions (host clock, synchronized); each "
+        f"equals the in-memory sort_by_key exactly, all {n} rows kept; spill_count "
+        f"{stats['spill_count']}, spilled_bytes {stats['spilled_bytes']}; {moved}")
+    if stats["spill_count"] <= 0:
+        raise AssertionError("ooc sort: no partition was spilled")
+    if chunked.runs["sort"] != runs + 1:
+        raise AssertionError("ooc sort: sort_by_key did not take the chunked branch")
+    _assert_sorted_equal(_sorted_host(got), ascending, "chunked sort")
+    log(f"ooc sort: [{gpu}] sort_by_key([k1, k2]) under a budget of {nbytes // 4} bytes: "
+        f"chunked ({rows}-row chunks) in {chunked_s * 1e3:.2f} ms, unchunked "
+        f"{unchunked_s * 1e3:.2f} ms (host clock, synchronized), equal to the in-memory "
+        f"sort exactly; {check_peaks('chunked sort', chunked_peak, unchunked_peak, nbytes)}")
+    return time.perf_counter() - t_start
+
+
+Q1_SHAPE_AGGS = [("l_quantity", "sum", "sum_qty"), ("l_extendedprice", "sum", "sum_price"),
+                 ("l_quantity", "mean", "avg_qty"), ("l_extendedprice", "mean", "avg_price"),
+                 ("l_discount", "mean", "avg_disc"), ("", "size", "count_order")]
+
+
+def ooc_groupby(gpu: str, lineitem) -> None:
+    """E.4: groupby_aggregate in q1's shape (l_returnflag, l_linestatus;
+    sums and means of f64 columns, size) on SF10 lineitem under a budget of
+    a fifth of its working set: the chunked branch, groups and counts equal
+    to the unchunked groupby exactly, f64 aggregates rtol 1e-9 (the port's
+    groupby tests' f64 tolerance), its peak allocation below the unchunked
+    groupby's."""
+    from cudf_tpu_torch import AggSpec, groupby_aggregate
+    from cudf_tpu_torch.ops import chunked
+    from cudf_tpu_torch.utils.hbm import table_device_bytes
+
+    aggs = [AggSpec(*a) for a in Q1_SHAPE_AGGS]
+    keys = ["l_returnflag", "l_linestatus"]
+    used = lineitem.select(keys + ["l_quantity", "l_extendedprice", "l_discount"])
+    want, want_s, want_peak = peaked(lambda: groupby_aggregate(lineitem, keys, aggs))
+    want = want.to_pandas()
+    limit = table_device_bytes(used) * chunked.GROUPBY_FACTOR // 5
+    runs = chunked.runs["groupby"]
+    _, store = ooc_setup(limit)
+    try:
+        out, s, peak = peaked(lambda: groupby_aggregate(lineitem, keys, aggs))
+        rows = chunked.chunk_rows(used, chunked.GROUPBY_FACTOR)
+    finally:
+        ooc_teardown(store)
+    if chunked.runs["groupby"] != runs + 1:
+        raise AssertionError("ooc groupby: q1's groupby did not take the chunked branch")
+    got = out.to_pandas()
+    pd.testing.assert_frame_equal(got[keys + ["count_order"]], want[keys + ["count_order"]])
+    pd.testing.assert_frame_equal(got, want, rtol=1e-9)
+    log(f"ooc groupby: [{gpu}] groupby_aggregate in q1's shape over {lineitem.num_rows} "
+        f"lineitem rows under a budget of {limit} bytes: chunked ({rows}-row chunks) in "
+        f"{s * 1e3:.2f} ms, unchunked {want_s * 1e3:.2f} ms (host clock, synchronized); "
+        f"{len(got)} groups, keys and counts equal to the unchunked groupby exactly, f64 "
+        f"aggregates rtol 1e-9; "
+        f"{check_peaks('ooc groupby', peak, want_peak, table_device_bytes(used))}")
+
+
+def _plan_counts(lowered, info) -> str:
+    from cudf_tpu_torch.expr.nodebase import traversal
+
+    shown = ("DataFrameScan", "Shuffle", "Repartition", "Join", "GroupBy", "Sort")
+    return ", ".join(f"{type(n).__name__}{list(n.args[0]) if type(n).__name__ == 'Shuffle' else ''}"
+                     f"x{info[n].count}" for n in traversal(lowered)
+                     if type(n).__name__ in shown)
+
+
+def ooc_tpch(gpu: str, plans: dict, runs: dict) -> int:
+    """E.5: q1, q3, q5 and q6 through execute_partitioned (no budget, the
+    partitions on the card) with OOC_TPCH_CONFIG, which must split lineitem
+    into at least 4 partitions and give q3 and q5 a broadcast and a shuffle
+    join; each answer equal to phase 9's IR.execute answer (row order
+    exact where the plan sorts, keys and counts exact, f64 rtol 1e-9), the
+    probe kernel launched at least once for each partition of a join.
+    Returns the probe launches."""
+    from cudf_tpu_torch.expr.lowering import LoweringConfig, lower_ir_graph
+    from cudf_tpu_torch.expr.nodebase import traversal
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.parallel.plan_executor import execute_partitioned
+
+    cfg = LoweringConfig(*OOC_TPCH_CONFIG)
+    total = 0
+    for q, plan in plans.items():
+        lowered, info = lower_ir_graph(plan, cfg)
+        nodes = list(traversal(lowered))
+        scans = [info[n].count for n in nodes if type(n).__name__ == "DataFrameScan"
+                 and n._tbl.num_rows == ROWS]
+        if not scans or min(scans) < 4:
+            raise AssertionError(f"ooc tpch {q}: lineitem in {scans} partitions, not >= 4")
+        joins = [n for n in nodes if type(n).__name__ == "Join"]
+        kinds = {all(type(c).__name__ == "Shuffle" for c in j.children) for j in joins}
+        if q in ("q3", "q5") and kinds != {True, False}:
+            raise AssertionError(f"ooc tpch {q}: not both a broadcast and a shuffle join")
+        before = ht.probe_table.launches
+        got, first_s = synced(lambda: execute_partitioned(plan, cfg).to_pandas())
+        launches = ht.probe_table.launches - before
+        _, warm_s = synced(lambda: execute_partitioned(plan, cfg))
+        total += ht.probe_table.launches - before
+        join_parts = sum(info[j].count for j in joins)
+        if launches < join_parts:
+            raise AssertionError(f"ooc tpch {q}: {launches} probe launches for "
+                                 f"{join_parts} join partitions")
+        pd.testing.assert_frame_equal(got, runs[q][0], rtol=1e-9)
+        log(f"ooc tpch {q}: [{gpu}] execute_partitioned {len(got)} rows, equal to "
+            f"IR.execute's (rtol 1e-9, order and counts exact); first {first_s * 1e3:.2f} ms "
+            f"with to_pandas, warm {warm_s * 1e3:.2f} ms against IR.execute's warm "
+            f"{runs[q][2] * 1e3:.2f} ms (host clock, synchronized); probe launches "
+            f"{launches} in the first run for {join_parts} join partitions")
+        log(f"ooc tpch {q}: lowered plan: {_plan_counts(lowered, info)}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1629,11 +2084,15 @@ def main() -> int:
     from cudf_tpu_torch.utils.padding import bucket_capacity
 
     onehot = kernels_vs_plain(gpu, bucket_capacity(n_active), n_active)
-    tbl, onehot["launches"] = main_path(gpu, df)
+    tbl, onehot["launches"], readme_out = main_path(gpu, df)
     frame, onehot["frame_launches"], frame_s = frame_readme(gpu, df)
     frame_s += frame_series(gpu, df, frame)
     del frame
     sort_lane(gpu, tbl, df)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_") as tmp:
+        onehot["ooc_launches"], ooc_budget, ooc_s = ooc_readme(gpu, df, tbl, readme_out,
+                                                               tmp)
+    ooc_s += ooc_compaction(gpu, tbl)
     del tbl
     t0 = time.perf_counter()
     od = orders(ORDERS, seed=1)
@@ -1645,19 +2104,28 @@ def main() -> int:
     merge_launches, merge_s = frame_merge(gpu, li, filtered, want)
     frame_s += merge_s
     t1 = time.perf_counter()
+    ooc_join_launches, join_s = ooc_join(gpu, li, filtered, want, ooc_budget)
+    ooc_s += join_s
+    t1b = time.perf_counter()
     join_general(gpu, li, filtered, want, match)
     t2 = time.perf_counter()
     probe = probe_vs_plain(gpu, li, filtered)
     t3 = time.perf_counter()
-    log(f"phases: [{gpu}] join {t1 - t0:.1f} s, join-general {t2 - t1:.1f} s, probe "
+    log(f"phases: [{gpu}] join {t1 - t0:.1f} s, join-general {t2 - t1b:.1f} s, probe "
         f"kernel checks {t3 - t2:.1f} s (host clock, checks included)")
     probe["launches"] = probe_launches
     probe["frame_launches"] = merge_launches
     del df, od, want, match, li, filtered  # the README and join frames
     torch.cuda.empty_cache()
-    sort_phase(gpu)
+    sort_tbl, sorted_cols = sort_phase(gpu)
     t4 = time.perf_counter()
-    probe["tpch_launches"], host, q3_out = tpch_phase(gpu)
+    ooc_s += ooc_sort(gpu, sort_tbl, sorted_cols)
+    del sort_tbl, sorted_cols
+    torch.cuda.empty_cache()
+    t4b = time.perf_counter()
+    probe["tpch_launches"], host, q3_out, tpch_ooc_launches, tpch_ooc_s = tpch_phase(gpu)
+    probe["ooc_launches"] = ooc_join_launches + tpch_ooc_launches
+    ooc_s += tpch_ooc_s
     t5 = time.perf_counter()
     strings_phase(gpu)
     t6 = time.perf_counter()
@@ -1665,11 +2133,16 @@ def main() -> int:
         probe["io_launches"], scan_s = io_phase(gpu, host, q3_out, tmp)
     frame_s += scan_s
     del host
-    log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {t5 - t4:.1f} s, strings "
-        f"{t6 - t5:.1f} s, io {time.perf_counter() - t6:.1f} s (host clock, data and "
-        f"oracles included)")
+    log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {t5 - t4b - tpch_ooc_s:.1f} s, "
+        f"strings {t6 - t5:.1f} s, io {time.perf_counter() - t6:.1f} s (host clock, data "
+        f"and oracles included)")
     log(f"phases: [{gpu}] frame {frame_s:.1f} s (host clock, oracles included: the "
         f"README quick start and Series ops, the merge, the frame over parquet)")
+    log(f"phases: [{gpu}] out-of-core {ooc_s:.1f} s (host clock, writes and checks "
+        f"included: the streamed README groupby, the chunked compaction, the partitioned "
+        f"Q3 join, the out-of-core and chunked sorts, the chunked groupby and the "
+        f"partitioned TPC-H); probe launches {probe['ooc_launches']}, one-hot launches "
+        f"{onehot['ooc_launches']}")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

@@ -19,8 +19,15 @@ the string, regex, text, JSON and datetime ops (``ops/strings.py``,
 rolling and grouped windows (``ops/filling.py``, ``ops/dictionary.py``,
 ``ops/hashing.py``, ``ops/rolling.py``, ``ops/grouped_window.py``), Arrow
 and DLPack interop (``core/interop.py``), the pyarrow readers and writers
-with deferred column decode (``io/``) and the pandas-like DataFrame API
-(``frame/``).
+with deferred column decode (``io/``), the pandas-like DataFrame API
+(``frame/``) and out-of-core execution: the device-memory budget and the
+host partition store (``utils/hbm.py``, ``utils/native.py``), chunked
+sorts, groupbys and compactions (``ops/chunked.py``,
+``ops/streaming_groupby.py``), row-group pruning and the chunked parquet
+reader (``io/parquet_ext.py``, ``io/datasource.py``), spilled partitions
+(``parallel/partitioned.py``) and the partitioned plan executor
+(``expr/lowering.py``, ``parallel/plan_executor.py``), reached by module
+as in the reference.
 
 The top level is the reference's: ``read_parquet``, ``read_csv``,
 ``read_json`` and ``read_orc`` return a ``DataFrame`` (``io.read_*``

@@ -19,8 +19,8 @@ executor's dispatch are the reference's. Differences:
     from disk. The reference prunes only in-memory scans; the result is
     the same table;
   * nodes whose ops are not ported yet raise ``NotImplementedError`` and
-    name their ROADMAP queue-1 item: ``ConditionalJoin`` (8) and
-    ``MapFunction`` explode (14).
+    name their ROADMAP queue-1 item by its title: ``ConditionalJoin`` and
+    ``MapFunction`` explode (nested types and the long tail).
 """
 from __future__ import annotations
 
@@ -458,9 +458,9 @@ def _filter(child: Table, predicate: Expr, needed=None) -> Table:
     return stream_compaction.apply_boolean_mask(child, mask)
 
 
-def _not_ported(what: str, item: int, module: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item "
-                               f"{item}, {module})")
+def _not_ported(what: str, item: str, module: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
+                               f"{item}: {module})")
 
 
 def _exec_node(n: IR, visitor) -> Table:
@@ -543,7 +543,8 @@ def _exec_node(n: IR, visitor) -> Table:
                 cols[out_name] = rolling_ops.rolling(out[vname], window, kind)
         return Table(cols)
     if isinstance(n, ConditionalJoin):
-        raise _not_ported("ConditionalJoin", 8, "ops/join.py:conditional_join")
+        raise _not_ported("ConditionalJoin", "nested types and the long tail",
+                          "ops/join.py:conditional_join")
     if isinstance(n, MergeSorted):
         from ..ops.merge import merge_sorted
 
@@ -560,6 +561,6 @@ def _exec_node(n: IR, visitor) -> Table:
             return Table({out_name: sequence(child.num_rows, device=child.device),
                           **dict(child)})
         if name == "explode":
-            raise _not_ported("MapFunction explode", 14, "core/lists.py")
+            raise _not_ported("MapFunction explode", "nested types", "core/lists.py")
         raise ValueError(f"unknown MapFunction {name!r}")
     raise TypeError(f"cannot execute {type(n).__name__}")

@@ -11,9 +11,11 @@ reads, decodes and copies a column only when the column is first used
 ``Table.from_pandas`` does. pyarrow is imported inside the functions, so
 ``import cudf_tpu_torch`` works without it.
 
-Not ported yet (ROADMAP queue 1): ``predicates=`` and http(s) paths
-(``parquet_ext.py``, item 13), the avro format (``avro.py``, item 13) and
-the chunked parquet reader (item 15).
+``read_parquet`` with ``predicates=`` or an http(s) path reads through
+``parquet_ext.py``'s own row-group pruning and range reads
+(``datasource.py``), and ``read_parquet_chunked`` is ``parquet_ext``'s
+chunked reader. Not ported yet: the avro format and ``s3://`` sources
+(ROADMAP queue 1, avro and S3).
 """
 from __future__ import annotations
 
@@ -26,9 +28,9 @@ from ..core.column import Column, resolve_device
 from ..core.table import Deferred, Table
 
 
-def _not_ported(what: str, item: int, module: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item "
-                               f"{item}, {module})")
+def _not_ported(what: str, item: str, module: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
+                               f"{item}: {module})")
 
 
 def _expand_paths(paths) -> List[str]:
@@ -45,13 +47,19 @@ def read_parquet(paths, columns: Optional[Sequence[str]] = None, filters=None,
                  predicates=None, device=None) -> Table:
     """cudf::io::read_parquet analog (cpp/src/io/functions.cpp:631). One
     file without ``filters`` gives a table of deferred columns; several
-    files, or pyarrow ``filters``, are read and copied at once."""
+    files, or pyarrow ``filters``, are read and copied at once.
+    ``predicates`` ((column, op, literal) conjunctions) and http(s) paths
+    go through ``parquet_ext.read_parquet_pruned``'s own stats pruning and
+    range reads."""
     dev = resolve_device(device)
     expanded = _expand_paths(paths)
     if predicates is not None or any(
             str(p).startswith(("http://", "https://")) for p in expanded):
-        raise _not_ported("read_parquet with predicates= or an http(s) path", 13,
-                          "io/parquet_ext.py")
+        from ..ops.copying import concatenate_tables
+        from .parquet_ext import read_parquet_pruned
+
+        tbls = [read_parquet_pruned(p, columns, predicates, device=dev) for p in expanded]
+        return concatenate_tables(tbls) if len(tbls) > 1 else tbls[0]
     if len(expanded) == 1 and filters is None:
         t = _read_parquet_deferred(expanded[0], columns, dev)
         if t is not None:
@@ -104,9 +112,17 @@ def _np_dtype(t) -> np.dtype:
 
 def read_parquet_chunked(path, columns: Optional[Sequence[str]] = None,
                          predicates=None, chunk_read_limit: int = 256 << 20,
-                         pass_read_limit: int = 1 << 30, prefetch: bool = True):
-    """Budget-bounded chunked read (cudf chunked_parquet_reader analog)."""
-    raise _not_ported("read_parquet_chunked", 15, "io/parquet_ext.py")
+                         pass_read_limit: int = 1 << 30, prefetch: bool = True,
+                         device=None):
+    """Budget-bounded chunked read (cudf's chunked_parquet_reader analog,
+    reader_impl_chunking.hpp pass/subpass planning): an iterator of Tables,
+    each chunk's decoded size within ``chunk_read_limit`` and the source
+    bytes held at once within ``pass_read_limit``; chunk k + 1 decodes on
+    the host while the caller works on chunk k."""
+    from .parquet_ext import ChunkedParquetReader
+
+    return ChunkedParquetReader(path, columns, predicates, chunk_read_limit,
+                                pass_read_limit, prefetch, device=device)
 
 
 def read_csv(path, columns=None, device=None, **kwargs) -> Table:
@@ -170,7 +186,7 @@ def scan(fmt: str, paths: List[str], columns: Optional[List[str]] = None,
     if fmt == "orc":
         return read_orc(paths[0], columns, device=device)
     if fmt == "avro":
-        raise _not_ported("the avro format", 13, "io/avro.py")
+        raise _not_ported("the avro format", "avro and S3", "io/avro.py")
     raise ValueError(f"unknown scan format {fmt}")
 
 
@@ -179,7 +195,7 @@ def write(tbl: Table, fmt: str, path: str) -> None:
     writers = {"parquet": write_parquet, "csv": write_csv, "json": write_json,
                "orc": write_orc}
     if fmt == "avro":
-        raise _not_ported("the avro format", 13, "io/avro.py")
+        raise _not_ported("the avro format", "avro and S3", "io/avro.py")
     if fmt not in writers:
         raise ValueError(f"unknown sink format {fmt}")
     writers[fmt](tbl, path)

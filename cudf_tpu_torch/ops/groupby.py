@@ -15,7 +15,9 @@ Dispatch, in order:
      wide lane answers (non-integral float keys).
 
 Every lane returns groups in ascending key order with nulls last (pandas
-sort=True). The reference's chunked branch is a later slice.
+sort=True). Past the memory the op may use, ``groupby_aggregate`` runs
+partial aggregates chunk by chunk (``ops/chunked.py``) when every
+aggregation merges; ``aggregate_in_memory`` is the dispatch above alone.
 """
 from __future__ import annotations
 
@@ -59,6 +61,21 @@ def _onehot_plan(tbl: Table, keys: Sequence[str], aggs):
 def groupby_aggregate(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
                       dropna_keys: bool = True) -> Table:
     """Grouped aggregation; output rows are in sorted key order."""
+    from .chunked import GROUPBY_FACTOR, chunk_rows, chunked_groupby
+
+    used = list(dict.fromkeys(list(keys) + [s.column for s in aggs if s.column]))
+    sub = tbl.select(used) if used else tbl
+    rows = chunk_rows(sub, GROUPBY_FACTOR)
+    if rows is not None:
+        out = chunked_groupby(sub, keys, aggs, dropna_keys, rows)
+        if out is not None:
+            return out
+    return aggregate_in_memory(tbl, keys, aggs, dropna_keys)
+
+
+def aggregate_in_memory(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
+                        dropna_keys: bool = True) -> Table:
+    """The groupby lanes over the whole table at once (never chunked)."""
     from .sortgroup import sort_groupby
 
     aggs = tuple(aggs)

@@ -18,8 +18,9 @@ over the real rows is the reference's.
 
 Not copied from the reference, which built them around the TPU: the
 payload-carrying word lanes (``_fast_sort_by_key``, ``_sort_code_plan``,
-``_order_ops``, ``build_order_words``, ``sort_payloads_by_words``) and the
-chunked branch, which comes with the out-of-core slice. ``rank`` takes each
+``_order_ops``, ``build_order_words``, ``sort_payloads_by_words``).
+``sort_by_key`` past the memory it may use sorts chunk by chunk
+(``ops/chunked.py``) and gives the same permutation. ``rank`` takes each
 group's start and end from a prefix sum of the group flags and a gather,
 where the reference runs cummax/cummin scans (torch's cummax took 398 ms
 over 2^27 rows on an H100).
@@ -84,6 +85,12 @@ def sorted_order(keys: Sequence[Column],
 def sort_by_key(tbl: Table, keys: Sequence[str],
                 descending: Union[bool, Sequence[bool]] = False,
                 nulls_last: Union[bool, Sequence[bool]] = True) -> Table:
+    from .chunked import SORT_FACTOR, chunk_rows, chunked_sort_by_key
+
+    rows = chunk_rows(tbl, SORT_FACTOR)
+    if rows is not None:
+        return chunked_sort_by_key(tbl, list(keys), _norm_flags(len(keys), descending),
+                                   _norm_flags(len(keys), nulls_last), rows)
     perm = sorted_order([tbl[k] for k in keys], descending, nulls_last)
     return gather_table(tbl, perm, tbl.num_rows)
 

@@ -8,8 +8,8 @@ size-returning kernels), then a gather into a buffer of the survivors'
 capacity bucket. The reference's flag sort and its lazy-length envelope
 exist for the TPU and are not copied. ``distinct`` takes the reference's
 default sort lane; its opt-in hash-table lane (``_distinct_pallas``) gives
-the same keep mask for keep="first" and is not copied. The chunked branch
-is a later slice.
+the same keep mask for keep="first" and is not copied. Past the memory an
+op may use, the compaction runs chunk by chunk (``ops/chunked.py``).
 
 Fault of the reference not copied: its ``keep="none"`` keeps the first
 occurrence, as ``"first"`` does; here it keeps only keys that occur once.
@@ -37,17 +37,27 @@ def _compact_column(col: Column, idx: torch.Tensor, n_out: int,
         validity = torch.zeros(out_cap, dtype=torch.bool, device=col.device)
         validity[:n_out] = col.validity[idx]
     out = Column(col.dtype, data, validity, n_out, col.dictionary)
-    # survivors are a SUBSET of the source's values: the source's stats are
-    # a conservative-correct bound for key-code planning
-    if col.stats is not None:
-        out.stats = col.stats
-    else:
-        out.stats_ref = col.stats_ref if col.stats_ref is not None else col
+    carry_stats(col, out)
     return out
 
 
+def carry_stats(src: Column, out: Column) -> None:
+    """Survivors are a subset of the source's values: the source's stats
+    are a conservative bound for key-code planning."""
+    if src.stats is not None:
+        out.stats = src.stats
+    else:
+        out.stats_ref = src.stats_ref if src.stats_ref is not None else src
+
+
 def _compact(tbl: Table, keep: torch.Tensor) -> Table:
-    """Keep rows where ``keep`` (bool[capacity], False past the length)."""
+    """Keep rows where ``keep`` (bool[capacity], False past the length);
+    past the memory the op may use, chunk by chunk (``ops/chunked.py``)."""
+    from .chunked import COMPACT_FACTOR, chunk_rows, chunked_compact
+
+    rows = chunk_rows(tbl, COMPACT_FACTOR)
+    if rows is not None:
+        return chunked_compact(tbl, keep, rows)
     idx = torch.nonzero(keep).squeeze(1)
     n_out = idx.numel()
     out_cap = bucket_capacity(n_out)

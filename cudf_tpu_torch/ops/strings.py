@@ -34,7 +34,7 @@ check: ``id()`` is reused once an object dies.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,16 +65,33 @@ def _remap_codes(col: Column, remap: np.ndarray, new_dict: np.ndarray) -> Column
     return Column(col.dtype, data, col.validity, col.length, new_dict)
 
 
-def unify_dictionaries(cols: List[Column]) -> List[Column]:
-    """Recode string columns onto the union dictionary (sorted)."""
-    dicts = [c.dictionary if c.dictionary is not None else np.array([], dtype=str)
-             for c in cols]
+def _dictionary_of(d: Optional[np.ndarray]) -> np.ndarray:
+    return d if d is not None else np.array([], dtype=str)
+
+
+def union_dictionary(dicts: Sequence[Optional[np.ndarray]]) -> Optional[np.ndarray]:
+    """The sorted union of string dictionaries; None when they are all one
+    (no recode needed)."""
+    dicts = [_dictionary_of(d) for d in dicts]
     if all(d is dicts[0] or (len(d) == len(dicts[0]) and (d == dicts[0]).all())
            for d in dicts[1:]):
+        return None
+    return np.unique(np.concatenate([d.astype(str) for d in dicts]))
+
+
+def recode(col: Column, dictionary: np.ndarray) -> Column:
+    """A string column recoded onto ``dictionary``, a sorted superset of its
+    own."""
+    own = _dictionary_of(col.dictionary).astype(str)
+    return _remap_codes(col, np.searchsorted(dictionary, own), dictionary)
+
+
+def unify_dictionaries(cols: List[Column]) -> List[Column]:
+    """Recode string columns onto the union dictionary (sorted)."""
+    merged = union_dictionary([c.dictionary for c in cols])
+    if merged is None:
         return list(cols)
-    merged = np.unique(np.concatenate([d.astype(str) for d in dicts]))
-    return [_remap_codes(c, np.searchsorted(merged, d.astype(str)), merged)
-            for c, d in zip(cols, dicts)]
+    return [recode(c, merged) for c in cols]
 
 
 def align_string_operands(lhs: Column, rhs: Column) -> Tuple[Column, Column]:
@@ -812,7 +829,8 @@ def split_expand(col: Column, delimiter: str = " ", maxsplit: int = -1) -> Table
 def split_record(col: Column, delimiter: str = " ", maxsplit: int = -1):
     """split into a list column of tokens per row (strings::split_record)."""
     raise NotImplementedError("split_record returns a list column, which is not "
-                              "ported yet (ROADMAP queue 1 item 14, core/lists.py)")
+                              "ported yet (ROADMAP queue 1, nested types: "
+                              "core/lists.py)")
 
 
 def partition_strings(col: Column, delimiter: str = " ") -> Table:

@@ -7,7 +7,7 @@ value-level text work: each distinct string is processed once, and the
 results come back to the rows through the codes. ``count_tokens`` counts on
 the device over the dictionary's byte matrix (``strings._dict_device_bytes``).
 Functions whose result is a list column (``wordpiece_tokenize``) raise until
-list columns are ported (ROADMAP queue 1 item 14).
+list columns are ported (ROADMAP queue 1, nested types).
 """
 from __future__ import annotations
 
@@ -277,7 +277,8 @@ def wordpiece_tokenize(col: Column, vocab: WordPieceVocabulary,
                        max_tokens_per_row: int = 64):
     """Token ids per row as a list column (nvtext::wordpiece_tokenize)."""
     raise NotImplementedError("wordpiece_tokenize returns a list column, which is "
-                              "not ported yet (ROADMAP queue 1 item 14, core/lists.py)")
+                              "not ported yet (ROADMAP queue 1, nested types: "
+                              "core/lists.py)")
 
 
 class BPEMergePairs:

@@ -349,8 +349,9 @@ def test_execute_with_profile_matches_execute():
 
 def test_unported_nodes_name_their_roadmap_item():
     s = _scan("port", FRAMES["x"])
-    cases = [(TIR.ConditionalJoin(TE.col("a") > TE.col("b"), children=(s, s)), "item 8"),
-             (TIR.MapFunction("explode", ("a",), children=(s,)), "item 14")]
+    cases = [(TIR.ConditionalJoin(TE.col("a") > TE.col("b"), children=(s, s)),
+              "queue 1, nested types and the long tail"),
+             (TIR.MapFunction("explode", ("a",), children=(s,)), "queue 1, nested types")]
     for node, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             TIR.execute(node)

@@ -349,13 +349,11 @@ def test_readers_default_to_cuda(tmp_path):
 def test_unported_io_names_its_roadmap_item(tmp_path):
     p = str(tmp_path / "d.parquet")
     pd.DataFrame({"a": [1]}).to_parquet(p)
-    cases = [(lambda: TIO.read_parquet(p, predicates=[("a", ">", 0)], device="cpu"),
-              "item 13"),
-             (lambda: TIO.read_parquet("http://localhost/x.parquet", device="cpu"), "item 13"),
-             (lambda: TIO.scan("avro", [p], device="cpu"), "item 13"),
+    cases = [(lambda: TIO.scan("avro", [p], device="cpu"), "queue 1, avro and S3"),
              (lambda: TIO.write(tt.Table.from_pandas(pd.DataFrame({"a": [1]}), device="cpu"),
-                                "avro", p), "item 13"),
-             (lambda: TIO.read_parquet_chunked(p), "item 15")]
+                                "avro", p), "queue 1, avro and S3"),
+             (lambda: TIO.read_parquet("s3://bucket/x.parquet", predicates=[("a", ">", 0)],
+                                       device="cpu"), "queue 1, avro and S3")]
     for call, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             call()

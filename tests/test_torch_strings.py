@@ -151,7 +151,7 @@ def test_concat_unify_and_encode_scalar_match_reference(cols):
 
 def test_split_record_needs_list_columns():
     _, tc = _pair(np.array(["a b"], object))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1, nested types"):
         TS.split_record(tc)
 
 

@@ -124,7 +124,7 @@ def test_reference_cases():
 
 def test_wordpiece_needs_list_columns():
     _, c = _pair(np.array(["hello"], object))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1, nested types"):
         TT.wordpiece_tokenize(c, TT.WordPieceVocabulary(["hello"]))
 
 
