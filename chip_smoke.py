@@ -99,6 +99,36 @@ Phases (each prints a line; any failure raises and exits nonzero):
                its chunked branch and q1, q3, q5 and q6 through
                execute_partitioned (lineitem in 4 partitions, broadcast and
                shuffle joins), each equal to IR.execute's answer.
+ 14. nested and long tail — beside the phases whose data it reuses:
+               after phase 3, cut(l_extendedprice, 16) and qcut(..., 10) at
+               60M rows equal to pandas.cut/qcut and groupby(bin).agg(mean,
+               size) through the Table API and the frame on the one-hot
+               kernel; t-digest of the 60M prices (and the merge of 4
+               partition digests) within 0.01 in rank of the sorted column;
+               approx_distinct_count(l_orderkey) within 5%; pack of phase
+               3's table, unpacked and split into 8 exactly; md5, sha256 and
+               xxhash_64 of [l_orderkey, l_extendedprice] at 16M rows, all
+               eight algorithms on 1M rows against hashlib and the CPU path
+               on a 200,000-row sample, hash_values for every method; after
+               phase 4, groupby_collect(l_orderkey) of 16M rows against
+               groupby(sort=True).agg(list) and list_sort; after phase 5, a
+               bloom filter over the filtered o_orderkey probed with the
+               60M l_orderkey (no false negatives, false positives within
+               twice the analytic share); in phase 9, mixed_join of
+               lineitem with Q3's filtered orders and l_shipdate >
+               o_orderdate + 60 days for inner, left, semi and anti on the
+               probe kernel against numpy, conditional_join of the first
+               1M lineitem rows with 1,000 price bands (inner, left,
+               IR.ConditionalJoin) against searchsorted; after phase 10,
+               split_record of the 16M strings, extract, list_contains,
+               list_unique, list_sort and explode + groupby(token) against
+               the pool's split, then Series.str.split(expand=False) ->
+               DataFrame.explode -> merge with the pool's 8M middle tokens
+               on the probe kernel; in phase 11, phase 11's scan file read
+               as s3://bench/scan.parquet from a local http.server on
+               127.0.0.1 (every request SigV4-signed) equal to the local
+               read, and 1M rows written to avro with the null codec and read
+               back through io.scan, and with deflate through IR.Scan, exactly.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -1364,6 +1394,7 @@ def tpch_phase(gpu: str):
         log(f"tpch {q}: [{gpu}] warm profile: "
             + device_breakdown(lambda: IR.execute(plan)))
     datetime_checks(gpu, host["lineitem"], dev["lineitem"])
+    nested_joins(gpu, host, dev)
     t_ooc = time.perf_counter()
     ooc_groupby(gpu, dev["lineitem"])
     ooc_launches = ooc_tpch(gpu, plans, runs)
@@ -1564,6 +1595,7 @@ def strings_phase(gpu: str) -> None:
         f"{X._count_tokens_device.launches}; pool oracles {oracle_s:.1f} s (host clock)")
     log(f"strings: [{gpu}] warm contains (bench pattern) profile: "
         + device_breakdown(ops["contains_bench"][0]))
+    nested_strings(gpu, k, pool, idx)
 
 
 # --------------------------------------------------------------- phase 11
@@ -1631,6 +1663,7 @@ def io_phase(gpu: str, host, q3_in_memory, tmp: str):
     log(f"io scan: [{gpu}] its parts: pyarrow decode of v {decode_s * 1e3:.2f} ms, "
         f"host-to-device copy of v {copy_s * 1e3:.2f} ms (host clock, synchronized)")
     frame_s = frame_scan(gpu, scan_path, k, v)
+    nested_s3(gpu, scan_path, v)
 
     plan = build_q3(lambda n: IR.Scan("parquet", (paths[n],)), E, IR, E.col)
     def first_run():
@@ -1659,6 +1692,7 @@ def io_phase(gpu: str, host, q3_in_memory, tmp: str):
     pd.testing.assert_frame_equal(back, q3_in_memory)
     log(f"io sink: [{gpu}] q3's result through IR.Sink('parquet') {sink_s * 1e3:.2f} ms "
         f"(host clock), read back equal ({len(back)} rows)")
+    nested_avro(gpu, host, tmp)
     return launches, frame_s
 
 
@@ -2064,6 +2098,599 @@ def ooc_tpch(gpu: str, plans: dict, runs: dict) -> int:
     return total
 
 
+# --------------------------------------------------------------- phase 14
+# The nested and long-tail phase runs beside the phases whose data it
+# reuses: the intervals, sketches, hashes and pack on phase 3's 60M
+# lineitem rows, COLLECT_LIST on phase 4's first CUT_ROWS, the bloom filter
+# on phase 5's Q3 join, the joins with a predicate on phase 9's SF10
+# tables, the lists on phase 10's strings, and avro and S3 in phase 11's
+# directory. NESTED sums its seconds and the kernels' launches.
+NESTED = {"seconds": 0.0, "onehot_launches": 0, "probe_launches": 0}
+NEST_HASH_ROWS = CUT_ROWS    # rows hashed with md5, sha256 and xxhash_64
+NEST_HASH_SLICE = 1_000_000  # rows hashed with all eight algorithms
+NEST_HASH_SAMPLE = 200_000   # of them held to hashlib and to the CPU path
+NEST_COND_ROWS = 1_000_000   # lineitem rows of the conditional join (x 1000 bands)
+NEST_BANDS = 1000
+NEST_AVRO_ROWS = 1_000_000   # rows written to and read from avro
+BLOOM_LOG2, BLOOM_K = 27, 3
+QUANTILES = (0.01, 0.25, 0.5, 0.75, 0.99)
+
+
+def _nested_done(t0: float) -> None:
+    NESTED["seconds"] += time.perf_counter() - t0
+
+
+def _host(col):
+    """A column's logical rows on the host, as its physical values."""
+    return col.data[: col.length].cpu().numpy()
+
+
+def _valid(col):
+    """A column's host validity (all True without a mask)."""
+    if col.validity is None:
+        return np.ones(col.length, bool)
+    return col.validity[: col.length].cpu().numpy()
+
+
+def nested_intervals(gpu: str, tbl, df) -> None:
+    """Step 3: cut(l_extendedprice, 16) and qcut(..., 10) at 60M rows equal
+    to pandas.cut/qcut, then groupby(bin).agg(mean, size) through the Table
+    API and the frame against numpy, the one-hot kernel counted."""
+    import torch
+
+    from cudf_tpu_torch import AggSpec, DataFrame, Series, Table, groupby_aggregate
+    from cudf_tpu_torch.core.interval import cut, qcut
+    from cudf_tpu_torch.kernels import onehot_groupby as oh
+
+    t0 = time.perf_counter()
+    price = tbl["l_extendedprice"]
+    host_p = df["l_extendedprice"].to_numpy()
+    n = price.length
+    bins, cut_s = synced(lambda: cut(price, 16))
+    _, cut_warm = synced(lambda: cut(price, 16))
+    deciles, qcut_s = synced(lambda: qcut(price, 10))
+    t1 = time.perf_counter()
+    want_cut = pd.cut(host_p, 16).codes
+    want_q = pd.qcut(host_p, 10).codes
+    oracle_s = time.perf_counter() - t1
+    for name, got, want in (("cut", bins, want_cut), ("qcut", deciles, want_q)):
+        codes = np.where(_valid(got), _host(got), -1)
+        if not np.array_equal(codes, want):
+            raise AssertionError(f"nested {name}: codes differ from pandas in "
+                                 f"{int((codes != want).sum())} rows")
+    oh.groupby_sum_count.launches = 0
+    g = Table({"bin": bins, "p": price})
+    aggs = [AggSpec("p", "mean", "mean"), AggSpec("", "size", "size")]
+    out, gb_s = synced(lambda: groupby_aggregate(g, ["bin"], aggs))
+    frame = DataFrame({"bin": Series(column=bins), "p": Series(column=price)})
+    fout, frame_s = synced(lambda: frame.groupby("bin").agg(mean=("p", "mean"),
+                                                             size=("p", "size")))
+    launches = oh.groupby_sum_count.launches
+    if launches < 2:
+        raise AssertionError(f"nested cut groupby: one-hot launches {launches}, want >= 2")
+    NESTED["onehot_launches"] += launches
+    size = np.bincount(want_cut, minlength=16)
+    mean = np.bincount(want_cut, weights=host_p.astype(np.float64), minlength=16) / size
+    fp = fout.to_pandas()
+    for what, m, s in (("Table", _host(out["mean"]), _host(out["size"])),
+                       ("frame", fp["mean"].to_numpy(), fp["size"].to_numpy())):
+        if not np.array_equal(s, size):
+            raise AssertionError(f"nested cut groupby ({what}): sizes differ")
+        np.testing.assert_allclose(m, mean, rtol=1e-5, err_msg=f"cut groupby ({what})")
+    torch.cuda.synchronize()
+    log(f"nested intervals: [{gpu}] cut(l_extendedprice, 16) over {n} rows first "
+        f"{cut_s * 1e3:.2f} ms, warm {cut_warm * 1e3:.2f} ms; qcut(10) {qcut_s * 1e3:.2f} ms "
+        f"(host quantiles included); codes equal pandas.cut/qcut exactly (pandas "
+        f"{oracle_s:.1f} s); groupby(bin).agg(mean, size) Table API {gb_s * 1e3:.2f} ms, "
+        f"frame {frame_s * 1e3:.2f} ms (host clock, synchronized), sizes exact and means "
+        f"rtol 1e-5 against numpy; one-hot launches {launches}")
+    _nested_done(t0)
+
+
+def nested_sketches(gpu: str, tbl, df) -> None:
+    """Step 5 (its first two parts): t-digest of l_extendedprice (60M rows)
+    and the merge of 4 partition digests, quantiles within 0.01 in rank of
+    the sorted column; approx_distinct_count(l_orderkey) within 5%."""
+    import torch
+
+    from cudf_tpu_torch import Column
+    from cudf_tpu_torch.ops import tdigest as TD
+
+    t0 = time.perf_counter()
+    price = tbl["l_extendedprice"]
+    n = price.length
+    sk, td_s = synced(lambda: TD.tdigest(price, 100))
+    _, td_warm = synced(lambda: TD.tdigest(price, 100))
+    parts = [price.slice(i * n // 4, (i + 1) * n // 4 - i * n // 4) for i in range(4)]
+    merged, merge_s = synced(lambda: TD.merge_tdigest([TD.tdigest(p, 100) for p in parts], 100))
+    exact = torch.sort(price.data[:n].to(torch.float64)).values
+    ranks = {}
+    for what, d in (("whole", sk), ("merged", merged)):
+        est = TD.tdigest_quantile(d, list(QUANTILES)).data[: len(QUANTILES)]
+        r = (torch.searchsorted(exact, est).to(torch.float64) / n).cpu().numpy()
+        ranks[what] = np.abs(r - np.asarray(QUANTILES))
+        if (ranks[what] > 0.01).any():
+            raise AssertionError(f"nested t-digest ({what}): rank errors {ranks[what]}")
+    keys = Column.from_numpy(df["l_orderkey"].to_numpy())
+    est, hll_s = synced(lambda: TD.approx_distinct_count([keys]))
+    actual = int(torch.unique(keys.data[: keys.length]).numel())
+    rel = abs(est - actual) / actual
+    if rel > 0.05:
+        raise AssertionError(f"nested HLL: {est} against {actual} distinct")
+    log(f"nested sketches: [{gpu}] tdigest(l_extendedprice, 100) over {n} rows first "
+        f"{td_s * 1e3:.2f} ms, warm {td_warm * 1e3:.2f} ms; 4 partition digests and their "
+        f"merge {merge_s * 1e3:.2f} ms; quantiles {list(QUANTILES)} within "
+        f"{max(ranks['whole'].max(), ranks['merged'].max()):.5f} in rank of the sorted "
+        f"column (bound 0.01); approx_distinct_count(l_orderkey) {est} against {actual} "
+        f"exact ({rel * 100:.3f}%, bound 5%) in {hll_s * 1e3:.2f} ms (host clock, "
+        f"synchronized)")
+    _nested_done(t0)
+
+
+def _row_bytes(keys: np.ndarray, prices: np.ndarray) -> list:
+    """The documented row message of [int64, f32] rows: little-endian bytes."""
+    raw = np.empty(len(keys), dtype=[("k", "<i8"), ("p", "<f4")])
+    raw["k"], raw["p"] = keys, prices
+    b = raw.tobytes()
+    return [b[i * 12: (i + 1) * 12] for i in range(len(keys))]
+
+
+def nested_hashes(gpu: str, df) -> None:
+    """Step 6: md5, sha256 and xxhash_64 of [l_orderkey, l_extendedprice]
+    at NEST_HASH_ROWS rows, timed; all eight algorithms on a 1M-row slice,
+    a 200,000-row sample of it held to hashlib and to the CPU path; and
+    DataFrame.hash_values for every method."""
+    import hashlib
+
+    import torch
+
+    from cudf_tpu_torch import Column, DataFrame, Series
+    from cudf_tpu_torch.ops import crypto_hash as CH
+
+    t0 = time.perf_counter()
+    keys = df["l_orderkey"].to_numpy()
+    prices = df["l_extendedprice"].to_numpy()
+    cols = [Column.from_numpy(keys[:NEST_HASH_ROWS]),
+            Column.from_numpy(prices[:NEST_HASH_ROWS])]
+    times = {}
+    for name, fn in (("md5", lambda: CH.md5(cols)), ("sha256", lambda: CH.sha256(cols)),
+                     ("xxhash_64", lambda: CH.xxhash_64(cols))):
+        out, first = synced(fn)
+        _, warm = synced(fn)
+        times[name] = (first, warm)
+        if out.length != NEST_HASH_ROWS:
+            raise AssertionError(f"nested {name}: {out.length} rows")
+    m = NEST_HASH_SLICE
+    sl = [c.slice(0, m) for c in cols]
+    got = {a: CH.hexdigest(sl, a) for a in CH.DIGESTS}
+    got["xxhash_32"], got["xxhash_64"] = CH.xxhash_32(sl, 7), CH.xxhash_64(sl, 7)
+    torch.cuda.synchronize()
+    rows = np.sort(np.random.default_rng(14).choice(m, NEST_HASH_SAMPLE, replace=False))
+    msgs = _row_bytes(keys[rows], prices[rows])
+    for a in CH.DIGESTS:
+        col = got[a]
+        codes = col.data[torch.from_numpy(rows).to(col.device)].cpu().numpy()
+        want = [getattr(hashlib, a)(b).hexdigest() for b in msgs]
+        if list(col.dictionary[codes]) != want:
+            raise AssertionError(f"nested {a}: digests differ from hashlib")
+    cpu = [Column.from_numpy(keys[rows], device="cpu"),
+           Column.from_numpy(prices[rows], device="cpu")]
+    def words(col):  # torch indexes no unsigned tensor on the card
+        return col.data.view(torch.int32 if col.dtype.bits == 32 else torch.int64)
+
+    for a, fn in (("xxhash_32", CH.xxhash_32), ("xxhash_64", CH.xxhash_64)):
+        dev = words(got[a])[torch.from_numpy(rows).to(got[a].device)].cpu().numpy()
+        if not np.array_equal(dev, words(fn(cpu, 7))[:NEST_HASH_SAMPLE].numpy()):
+            raise AssertionError(f"nested {a}: the card differs from the CPU path")
+    frame = DataFrame({"k": Series(column=sl[0]), "p": Series(column=sl[1])})
+    for method in ("murmur3", "xxhash32", "xxhash64") + CH.DIGESTS:
+        h = frame.hash_values(method)
+        if len(h) != m:
+            raise AssertionError(f"nested hash_values({method}): {len(h)} rows")
+        if method in CH.DIGESTS and not torch.equal(h.column.data[:m], got[method].data[:m]):
+            raise AssertionError(f"nested hash_values({method}) differs from {method}")
+    log(f"nested hashes: [{gpu}] [l_orderkey, l_extendedprice] at {NEST_HASH_ROWS} rows: "
+        + ", ".join(f"{k} first {v[0] * 1e3:.2f} ms, warm {v[1] * 1e3:.2f} ms"
+                    for k, v in times.items())
+        + f" (host clock, synchronized; a digest column's host dictionary included); all "
+        f"eight algorithms on {m} rows: md5/sha* equal hashlib and xxhash_32/64 the CPU "
+        f"path on a {NEST_HASH_SAMPLE}-row sample; hash_values ran every method")
+    _nested_done(t0)
+
+
+def nested_pack(gpu: str, tbl) -> None:
+    """Step 7: pack phase 3's table (60M rows, 3 columns with masks),
+    unpack it to the card exactly, and contiguous_split into 8 blobs, each
+    equal to its slice of rows."""
+    import torch
+
+    from cudf_tpu_torch.ops import pack as P
+
+    t0 = time.perf_counter()
+    n = tbl.num_rows
+    blob, pack_s = synced(lambda: P.pack(tbl))
+    back, unpack_s = synced(lambda: P.unpack(blob))
+
+    def same(a, b, rows, what):
+        for name, c in a:
+            d = b[name]
+            if not torch.equal(c.data[:rows], d.data[:rows]) or \
+                    (c.validity is None) != (d.validity is None) or \
+                    (c.validity is not None and not torch.equal(c.validity[:rows],
+                                                                 d.validity[:rows])):
+                raise AssertionError(f"nested pack ({what}): column {name} differs")
+
+    same(back, tbl, n, "unpack")
+    bounds = [n * i // 8 for i in range(9)]
+    pieces, split_s = synced(lambda: P.contiguous_split(tbl, bounds[1:-1]))
+    for i, piece in enumerate(pieces):
+        got = P.unpack(piece)
+        if got.num_rows != bounds[i + 1] - bounds[i]:
+            raise AssertionError(f"nested contiguous_split: piece {i} rows")
+        same(got, tbl.slice(bounds[i], got.num_rows), got.num_rows, f"piece {i}")
+    gb = blob.nbytes / 1e9
+    log(f"nested pack: [{gpu}] {n} rows x {tbl.num_columns} columns with masks, "
+        f"{gb:.3f} GB blob: pack {pack_s * 1e3:.2f} ms ({gb / pack_s:.2f} GB/s), unpack to "
+        f"the card {unpack_s * 1e3:.2f} ms ({gb / unpack_s:.2f} GB/s), contiguous_split "
+        f"into 8 {split_s * 1e3:.2f} ms (host clock, synchronized); every column, mask and "
+        f"piece exact")
+    _nested_done(t0)
+
+
+def nested_collect(gpu: str, df) -> None:
+    """Step 2: groupby_collect(l_orderkey) of l_extendedprice on the first
+    CUT_ROWS rows against pandas' groupby(sort=True).agg(list), built with
+    numpy (a stable argsort and run lengths), then list_sort."""
+    from cudf_tpu_torch import Column, Table
+    from cudf_tpu_torch.core.lists import groupby_collect
+    from cudf_tpu_torch.ops.list_ops import list_sort
+
+    t0 = time.perf_counter()
+    keys = df["l_orderkey"].to_numpy()[:CUT_ROWS]
+    prices = df["l_extendedprice"].to_numpy()[:CUT_ROWS]
+    t = Table({"k": Column.from_numpy(keys), "p": Column.from_numpy(prices)})
+    (kt, lists), first = synced(lambda: groupby_collect(t, ["k"], "p"))
+    _, warm = synced(lambda: groupby_collect(t, ["k"], "p"))
+    srt, sort_s = synced(lambda: list_sort(lists))
+    order = np.argsort(keys, kind="stable")
+    uk, counts = np.unique(keys, return_counts=True)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    if not np.array_equal(_host(kt["k"]), uk):
+        raise AssertionError("nested collect: group keys differ")
+    if not np.array_equal(lists.offsets.cpu().numpy(), offs):
+        raise AssertionError("nested collect: offsets differ")
+    if not np.array_equal(_host(lists.child), prices[order]):
+        raise AssertionError("nested collect: child values differ")
+    if not np.array_equal(_host(srt.child), prices[np.lexsort((prices, keys))]):
+        raise AssertionError("nested list_sort: child values differ")
+    log(f"nested collect: [{gpu}] groupby_collect over {CUT_ROWS} rows -> {len(uk)} lists: "
+        f"first {first * 1e3:.2f} ms, warm {warm * 1e3:.2f} ms, list_sort "
+        f"{sort_s * 1e3:.2f} ms (host clock, synchronized); keys, offsets and every child "
+        f"value equal groupby(sort=True).agg(list), sorted lists exact")
+    _nested_done(t0)
+
+
+def nested_bloom(gpu: str, li, filtered, match) -> None:
+    """Step 5 (its third part): a bloom filter over the filtered o_orderkey,
+    probed with the 60M l_orderkey: no false negatives, and a false-positive
+    share within twice the analytic one."""
+    from cudf_tpu_torch.ops import bloom as B
+
+    t0 = time.perf_counter()
+    nb = filtered.num_rows
+    bf, build_s = synced(lambda: B.build([filtered["o_orderkey"]], BLOOM_LOG2, BLOOM_K))
+    hit, probe_s = synced(lambda: B.maybe_contains(bf, [li["l_orderkey"]]))
+    got = _host(hit)
+    if not got[match].all():
+        raise AssertionError("nested bloom: a matched lineitem row was filtered out")
+    fp = float(got[~match].mean())
+    m = 1 << BLOOM_LOG2
+    analytic = (1 - np.exp(-BLOOM_K * nb / m)) ** BLOOM_K
+    if fp > 2 * analytic:
+        raise AssertionError(f"nested bloom: false positives {fp}, analytic {analytic}")
+    log(f"nested bloom: [{gpu}] build over {nb} o_orderkey (m = 2^{BLOOM_LOG2}, k = "
+        f"{BLOOM_K}) {build_s * 1e3:.2f} ms, probe of {li.num_rows} l_orderkey "
+        f"{probe_s * 1e3:.2f} ms (host clock, synchronized); no false negatives, "
+        f"false-positive share {fp:.6f} (analytic {analytic:.6f}, bound twice that)")
+    _nested_done(t0)
+
+
+def nested_strings(gpu: str, k, pool, idx) -> None:
+    """Step 1: split_record of phase 10's 16M rows, the list ops on it and
+    explode + groupby against the pool's split; then the frame path:
+    Series.str.split(expand=False), DataFrame.explode and merge with a
+    vocabulary of the pool's middle tokens, with probe launches counted.
+    The child's dictionary is the present middle tokens, then "page" and
+    "url" (hex digits sort before both), so a row's middle token has its
+    own code in ``k``."""
+    import torch
+
+    from cudf_tpu_torch import AggSpec, Column, DataFrame, Series, Table, dtypes
+    from cudf_tpu_torch import groupby_aggregate
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.ops import list_ops as LO
+    from cudf_tpu_torch.ops import strings as S
+    from cudf_tpu_torch.ops.filling import sequence
+
+    t0 = time.perf_counter()
+    n = k.length
+    lc, split_s = synced(lambda: S.split_record(k, "/"))
+    d = lc.child.dictionary
+    kd = k.dictionary
+    D = len(d)
+    if lc.length != n or lc.child.length != 3 * n or D != len(kd) + 2:
+        raise AssertionError("nested split_record: sizes differ from the pool's")
+    probe_rows = np.random.default_rng(1).integers(0, len(kd), 10_000)
+    if list(d[-2:]) != ["page", "url"] or \
+            [s[4:13] for s in kd[probe_rows]] != list(d[probe_rows]):
+        raise AssertionError("nested split_record: the child dictionary differs")
+    codes = k.data[:n].to(torch.int64)
+    three = torch.stack([torch.full_like(codes, D - 1), codes, torch.full_like(codes, D - 2)], 1)
+    if not torch.equal(lc.offsets.to(torch.int64), 3 * torch.arange(n + 1, device=codes.device)) \
+            or not torch.equal(lc.child.data[:3 * n].to(torch.int64), three.reshape(-1)):
+        raise AssertionError("nested split_record: lists differ from the pool's split")
+    if not bool((lc.lengths().data[:n] == 3).all()):
+        raise AssertionError("nested lengths")
+    mid, extract_s = synced(lambda: lc.extract(1))
+    if not torch.equal(mid.data[:n].to(torch.int64), codes) or not bool(mid.validity[:n].all()):
+        raise AssertionError("nested extract(1) differs from the middle tokens")
+    has, contains_s = synced(lambda: LO.list_contains(lc, "page"))
+    if not bool(has.data[:n].all()):
+        raise AssertionError("nested list_contains('page')")
+    sorted_codes = three[:, [1, 2, 0]].reshape(-1)  # hex < "page" < "url"
+    uniq, unique_s = synced(lambda: LO.list_unique(lc))
+    srt, sort_s = synced(lambda: LO.list_sort(lc))
+    for what, got in (("list_unique", uniq), ("list_sort", srt)):
+        if not torch.equal(got.offsets.to(torch.int64), lc.offsets.to(torch.int64)) or \
+                not torch.equal(got.child.data[:3 * n].to(torch.int64), sorted_codes):
+            raise AssertionError(f"nested {what} differs from the pool's split")
+    _, child = lc.explode()
+    counts, gb_s = synced(lambda: groupby_aggregate(Table({"t": child}), ["t"],
+                                                    [AggSpec("", "size", "n")]))
+    want = np.bincount(_host(k), minlength=len(kd)).astype(np.int64)
+    want = np.concatenate([want, [n, n]])
+    if counts.num_rows != D or not np.array_equal(_host(counts["n"]), want):
+        raise AssertionError("nested explode + groupby(token).size() differs from numpy")
+    lists_s = time.perf_counter() - t0
+
+    # the frame path
+    t1 = time.perf_counter()
+    # the pool's middle tokens f"{i:09x}", spelled as numpy str code points:
+    # sorted and distinct, so they are their own dictionary
+    digits = (np.arange(len(pool))[:, None] >> (4 * np.arange(8, -1, -1))) & 0xF
+    hexes = np.where(digits < 10, digits + 48, digits + 87).astype("<u4").view(
+        "<U9").reshape(-1)
+    vid = sequence(len(pool), device=k.device)
+    vocab = DataFrame({"tok": Series(column=Column(dtypes.string, vid.data.to(torch.int32),
+                                                   None, len(pool), dictionary=hexes)),
+                       "vid": Series(column=vid)})
+    frame = DataFrame({"k": Series(column=k), "row": Series(column=sequence(n,
+                                                                          device=k.device))})
+    ht.probe_table.launches = 0
+
+    def frame_path():
+        parts = frame["k"].str.split("/", expand=False)
+        exploded = DataFrame({"tok": parts, "row": frame["row"]}).explode("tok")
+        return exploded, exploded.merge(vocab, on="tok")
+
+    (exploded, merged), frame_s = synced(frame_path)
+    launches = ht.probe_table.launches
+    if launches < 1:
+        raise AssertionError("nested frame merge did not launch the probe kernel")
+    NESTED["probe_launches"] += launches
+    if len(exploded) != 3 * n or len(merged) != n:
+        raise AssertionError(f"nested frame: {len(exploded)} exploded, {len(merged)} merged")
+    row, vid = _host(merged._tbl["row"]), _host(merged._tbl["vid"])
+    order = np.argsort(row)
+    if not np.array_equal(row[order], np.arange(n)) or not np.array_equal(vid[order], idx):
+        raise AssertionError("nested frame: merged rows differ from the pool's tokens")
+    log(f"nested strings: [{gpu}] split_record('/') of {n} rows ({len(kd)} distinct) -> "
+        f"{lc.child.length} children {split_s * 1e3:.2f} ms, extract(1) "
+        f"{extract_s * 1e3:.2f} ms, list_contains {contains_s * 1e3:.2f} ms, list_unique "
+        f"{unique_s * 1e3:.2f} ms, list_sort {sort_s * 1e3:.2f} ms, explode+groupby(token)"
+        f".size() {gb_s * 1e3:.2f} ms (host clock, synchronized); every list, length and "
+        f"count equals the pool's split ({lists_s:.1f} s with checks)")
+    log(f"nested strings: [{gpu}] frame str.split(expand=False) -> explode -> merge with "
+        f"{len(pool)} vocabulary tokens: {frame_s:.2f} s (host clock, synchronized; each "
+        f"distinct value split on the host once, by pyarrow), {len(merged)} rows equal "
+        f"the generator's indices; probe launches {launches} "
+        f"({time.perf_counter() - t1:.1f} s with the vocabulary and checks)")
+    _nested_done(t0)
+
+
+def nested_joins(gpu: str, host, dev) -> None:
+    """Step 4 on phase 9's SF10 tables: mixed_join of lineitem with Q3's
+    filtered orders on the order key and l_shipdate > o_orderdate + 60 days,
+    for inner, left, semi and anti, against numpy; conditional_join of the
+    first NEST_COND_ROWS lineitem rows with NEST_BANDS price bands, inner and
+    left, against searchsorted; IR.ConditionalJoin equal to inner."""
+    import torch
+
+    from cudf_tpu_torch import Column, Table, apply_boolean_mask, binary_op
+    from cudf_tpu_torch.expr import expressions as E
+    from cudf_tpu_torch.expr import ir as IR
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.ops.join import conditional_join, mixed_join
+
+    t0 = time.perf_counter()
+    cutoff = np.datetime64("1995-03-15")
+    days = np.timedelta64(60, "D")
+    li = dev["lineitem"].select(["l_orderkey", "l_shipdate", "l_extendedprice"])
+    od = dev["orders"].select(["o_orderkey", "o_orderdate"])
+    filtered = apply_boolean_mask(od, binary_op(od["o_orderdate"], cutoff, "lt"))
+    expr = E.col("l_shipdate") > E.col("o_orderdate") + E.Literal(days)
+    pred = lambda t: E.evaluate(expr, t)  # noqa: E731
+    hl, ho = host["lineitem"], host["orders"]
+    lk = hl["l_orderkey"].to_numpy()
+    odate = ho["o_orderdate"].to_numpy()  # o_orderkey is the row number
+    ship = hl["l_shipdate"].to_numpy()
+    hit = (odate[lk] < cutoff) & (ship > odate[lk] + days)
+    rows = np.flatnonzero(hit)
+    miss = np.flatnonzero(~hit)
+    ship_i = ship.astype("datetime64[ns]").view(np.int64)
+    ht.probe_table.launches = 0
+    times = {}
+    for how in ("inner", "left", "semi", "anti"):
+        out, s = synced(lambda: mixed_join(li, filtered, ["l_orderkey"], ["o_orderkey"], pred,
+                                           how))
+        times[how] = s
+        take = {"inner": rows, "semi": rows, "anti": miss,
+                "left": np.concatenate([rows, miss])}[how]
+        got_k, got_s = _host(out["l_orderkey"]), out["l_shipdate"].to_numpy()
+        if not (np.array_equal(got_k, lk[take])
+                and np.array_equal(got_s.astype("datetime64[ns]").view(np.int64),
+                                   ship_i[take])
+                and np.array_equal(_host(out["l_extendedprice"]),
+                                   hl["l_extendedprice"].to_numpy()[take])):
+            raise AssertionError(f"nested mixed_join {how}: rows differ from numpy")
+        if how in ("inner", "left"):
+            od_got = out["o_orderdate"].to_numpy()
+            valid = ~np.isnat(od_got)
+            if not np.array_equal(valid, np.arange(len(take)) < len(rows)) or \
+                    not np.array_equal(od_got[valid].astype("datetime64[ns]"),
+                                       odate[lk[rows]].astype("datetime64[ns]")):
+                raise AssertionError(f"nested mixed_join {how}: o_orderdate differs")
+    launches = ht.probe_table.launches
+    if launches < 1:
+        raise AssertionError("nested mixed_join did not launch the probe kernel")
+    NESTED["probe_launches"] += launches
+
+    edges = np.linspace(900.0, 105000.0, NEST_BANDS + 1)
+    bands = Table({"lo": Column.from_numpy(edges[:-1]), "hi": Column.from_numpy(edges[1:]),
+                   "band": Column.from_numpy(np.arange(NEST_BANDS))})
+    lsub = dev["lineitem"].select(["l_extendedprice"]).slice(0, NEST_COND_ROWS)
+    cond = (E.col("l_extendedprice") >= E.col("lo")) & (E.col("l_extendedprice") < E.col("hi"))
+    p = hl["l_extendedprice"].to_numpy()[:NEST_COND_ROWS]
+    b = np.searchsorted(edges, p, side="right") - 1
+    inside = (b >= 0) & (b < NEST_BANDS)
+    cond_times = {}
+    for how in ("inner", "left"):
+        out, s = synced(lambda: conditional_join(lsub, bands, lambda t: E.evaluate(cond, t),
+                                                 how))
+        cond_times[how] = s
+        take = np.flatnonzero(inside) if how == "inner" else \
+            np.concatenate([np.flatnonzero(inside), np.flatnonzero(~inside)])
+        band = out["band"]
+        valid = _valid(band)
+        if not np.array_equal(_host(out["l_extendedprice"]), p[take]) or \
+                not np.array_equal(valid, np.arange(len(take)) < inside.sum()) or \
+                not np.array_equal(_host(band)[valid], b[take][valid]):
+            raise AssertionError(f"nested conditional_join {how}: rows differ")
+    plan = IR.ConditionalJoin(cond, "inner", children=(IR.DataFrameScan(lsub),
+                                                       IR.DataFrameScan(bands)))
+    ir_out, ir_s = synced(lambda: IR.execute(plan))
+    if not np.array_equal(_host(ir_out["band"]), b[inside]):
+        raise AssertionError("nested IR.ConditionalJoin differs from conditional_join")
+    torch.cuda.synchronize()
+    log(f"nested joins: [{gpu}] mixed_join of {li.num_rows} lineitem rows with "
+        f"{filtered.num_rows} filtered orders on the key and l_shipdate > o_orderdate + 60 "
+        f"days: " + ", ".join(f"{h} {s * 1e3:.2f} ms" for h, s in times.items())
+        + f" ({len(rows)} rows pass); probe launches {launches}; conditional_join of "
+        f"{NEST_COND_ROWS} rows x {NEST_BANDS} bands ({NEST_COND_ROWS * NEST_BANDS} pair "
+        f"tests): " + ", ".join(f"{h} {s * 1e3:.2f} ms" for h, s in cond_times.items())
+        + f", IR.ConditionalJoin {ir_s * 1e3:.2f} ms (host clock, synchronized); every "
+        f"how equals numpy, the bands equal searchsorted")
+    _nested_done(t0)
+
+
+def nested_avro(gpu: str, host, tmp: str) -> None:
+    """Step 8: NEST_AVRO_ROWS rows of [int64, double, string, nullable long]
+    written with the null codec and read back through io.scan("avro"), and
+    with deflate through IR.Scan("avro"), exactly (each read is a per-value
+    host loop, so one read a codec)."""
+    from cudf_tpu_torch import Table
+    from cudf_tpu_torch import io as tio
+    from cudf_tpu_torch.expr import ir as IR
+    from cudf_tpu_torch.io.avro import write_avro
+
+    t0 = time.perf_counter()
+    hl = host["lineitem"].iloc[:NEST_AVRO_ROWS]
+    supp = pd.array(hl["l_suppkey"].to_numpy(), dtype="Int64")
+    supp[::10] = pd.NA
+    src = pd.DataFrame({"k": hl["l_orderkey"].to_numpy(), "p": hl["l_extendedprice"].to_numpy(),
+                        "s": hl["l_returnflag"].to_numpy(), "m": supp})
+    tbl = Table.from_pandas(src)
+    want = tbl.to_pandas()
+    times = []
+    for codec, how, read in (("null", "io.scan", lambda p: tio.scan("avro", [p])),
+                             ("deflate", "IR.Scan",
+                              lambda p: IR.execute(IR.Scan("avro", (p,))))):
+        path = os.path.join(tmp, f"nested_{codec}.avro")
+        _, w_s = synced(lambda: write_avro(tbl, path, codec))
+        got, r_s = synced(lambda: read(path))
+        pd.testing.assert_frame_equal(got.to_pandas(), want)
+        times.append(f"{codec}: write {w_s:.2f} s, {how} {r_s:.2f} s "
+                     f"({os.path.getsize(path) / 1e6:.1f} MB)")
+    log(f"nested avro: [{gpu}] {NEST_AVRO_ROWS} rows of [int64, double, string, nullable "
+        f"long]: " + "; ".join(times) + " (host clock, synchronized); each read equals the "
+        f"table exactly")
+    _nested_done(t0)
+
+
+def nested_s3(gpu: str, scan_path: str, v) -> None:
+    """Step 9: phase 11's scan file served by a local http.server on
+    127.0.0.1 that answers HEAD and Range GETs and records each
+    Authorization header; read_parquet('s3://bench/scan.parquet')['v'] with
+    the endpoint there equals the written v, every request SigV4-signed."""
+    import http.server
+    import socketserver
+
+    from cudf_tpu_torch.io import read_parquet
+
+    t0 = time.perf_counter()
+    seen = []
+    size = os.path.getsize(scan_path)
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_HEAD(self):
+            seen.append(self.headers.get("Authorization"))
+            self.send_response(200)
+            self.send_header("Content-Length", str(size))
+            self.end_headers()
+
+        def do_GET(self):
+            seen.append(self.headers.get("Authorization"))
+            lo, hi = (int(x) for x in self.headers["Range"].split("=")[1].split("-"))
+            with open(scan_path, "rb") as f:
+                f.seek(lo)
+                body = f.read(hi - lo + 1)
+            self.send_response(206)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    env = {"AWS_ACCESS_KEY_ID": "AKIDCHIPSMOKE", "AWS_SECRET_ACCESS_KEY": "chip-smoke-secret",
+           "AWS_DEFAULT_REGION": "us-east-1"}
+    saved = {k: os.environ.get(k) for k in list(env) + ["AWS_ENDPOINT_URL"]}
+    srv = socketserver.ThreadingTCPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        os.environ.update(env, AWS_ENDPOINT_URL=f"http://127.0.0.1:{srv.server_address[1]}")
+        t, read_s = synced(lambda: read_parquet("s3://bench/scan.parquet", columns=["v"]))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+        for k_, old in saved.items():
+            if old is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = old
+    if not np.array_equal(_host(t["v"]), v):
+        raise AssertionError("nested s3: v differs from the local file's")
+    if not seen or not all(a and a.startswith("AWS4-HMAC-SHA256 Credential=") for a in seen):
+        raise AssertionError("nested s3: a request without a SigV4 Authorization header")
+    log(f"nested s3: [{gpu}] read_parquet('s3://bench/scan.parquet', ['v']) through a local "
+        f"endpoint on 127.0.0.1: {t.num_rows} rows in {read_s:.2f} s (host clock, "
+        f"synchronized) over {len(seen)} SigV4-signed requests; v equals the written array")
+    _nested_done(t0)
+
+
 def main() -> int:
     import torch
 
@@ -2085,10 +2712,15 @@ def main() -> int:
 
     onehot = kernels_vs_plain(gpu, bucket_capacity(n_active), n_active)
     tbl, onehot["launches"], readme_out = main_path(gpu, df)
+    nested_intervals(gpu, tbl, df)
+    nested_sketches(gpu, tbl, df)
+    nested_pack(gpu, tbl)
+    nested_hashes(gpu, df)
     frame, onehot["frame_launches"], frame_s = frame_readme(gpu, df)
     frame_s += frame_series(gpu, df, frame)
     del frame
     sort_lane(gpu, tbl, df)
+    nested_collect(gpu, df)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_") as tmp:
         onehot["ooc_launches"], ooc_budget, ooc_s = ooc_readme(gpu, df, tbl, readme_out,
                                                                tmp)
@@ -2103,6 +2735,7 @@ def main() -> int:
     li, filtered, probe_launches = join_path(gpu, df, od, want, match)
     merge_launches, merge_s = frame_merge(gpu, li, filtered, want)
     frame_s += merge_s
+    nested_bloom(gpu, li, filtered, match)
     t1 = time.perf_counter()
     ooc_join_launches, join_s = ooc_join(gpu, li, filtered, want, ooc_budget)
     ooc_s += join_s
@@ -2143,6 +2776,14 @@ def main() -> int:
         f"Q3 join, the out-of-core and chunked sorts, the chunked groupby and the "
         f"partitioned TPC-H); probe launches {probe['ooc_launches']}, one-hot launches "
         f"{onehot['ooc_launches']}")
+    onehot["nested_launches"] = NESTED["onehot_launches"]
+    probe["nested_launches"] = NESTED["probe_launches"]
+    log(f"phases: [{gpu}] nested and long tail {NESTED['seconds']:.1f} s (host clock, data, "
+        f"oracles and checks included: intervals, sketches, pack and hashes on phase 3's "
+        f"rows, COLLECT_LIST, the bloom filter, the joins with a predicate, the lists from "
+        f"strings, S3 and avro); one-hot launches {NESTED['onehot_launches']} (the cut "
+        f"groupbys), probe launches {NESTED['probe_launches']} (mixed_join and the token "
+        f"merge)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

@@ -26,8 +26,14 @@ sorts, groupbys and compactions (``ops/chunked.py``,
 ``ops/streaming_groupby.py``), row-group pruning and the chunked parquet
 reader (``io/parquet_ext.py``, ``io/datasource.py``), spilled partitions
 (``parallel/partitioned.py``) and the partitioned plan executor
-(``expr/lowering.py``, ``parallel/plan_executor.py``), reached by module
-as in the reference.
+(``expr/lowering.py``, ``parallel/plan_executor.py``), and the nested
+types and long tail: list, struct and interval columns
+(``core/lists.py``, ``core/structs.py``, ``core/interval.py``), the list
+ops, conditional and mixed joins (``ops/list_ops.py``, ``ops/join.py``),
+t-digest and HLL sketches, bloom filters, md5/sha/xxhash row hashes and
+pack (``ops/tdigest.py``, ``ops/bloom.py``, ``ops/crypto_hash.py``,
+``ops/pack.py``), avro and ``s3://`` sources (``io/avro.py``,
+``io/s3.py``), reached by module as in the reference.
 
 The top level is the reference's: ``read_parquet``, ``read_csv``,
 ``read_json`` and ``read_orc`` return a ``DataFrame`` (``io.read_*``

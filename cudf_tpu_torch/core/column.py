@@ -1,8 +1,11 @@
 """Columnar data model: device-resident, padded, null-aware columns.
 
 Counterpart of ``cudf_tpu/core/column.py`` (numeric, bool,
-dictionary-encoded string and categorical columns, ``core/categorical.py``;
-list, struct and decimal columns are not ported yet). Invariants kept from the reference:
+dictionary-encoded string and categorical columns, ``core/categorical.py``,
+and list-valued host cells in an object dictionary; list, struct and
+interval columns are ``core/lists.py``, ``core/structs.py`` and
+``core/interval.py``; decimal columns are not ported yet). Invariants
+kept from the reference:
 
   - data.shape == (capacity,), capacity == bucket_capacity(length) normally
   - rows with index >= length are garbage; every operator masks them
@@ -20,6 +23,7 @@ missing — the CPU is used only when the caller asks for it.
 """
 from __future__ import annotations
 
+import decimal
 import warnings
 from typing import Optional
 
@@ -29,6 +33,10 @@ import torch
 from . import dtypes
 from .dtypes import DType, Kind
 from ..utils.padding import bucket_capacity
+
+
+DECIMALS_NOT_PORTED = ("decimal columns are not ported yet (ROADMAP queue 1, "
+                       "remainders: ops/decimal.py, ops/decimal128.py)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -136,6 +144,11 @@ class Column:
         """Build a column from a host numpy array and optional bool validity."""
         dev = resolve_device(device)
         arr = np.asarray(arr)
+        if arr.dtype.kind == "O" and any(
+                isinstance(x, (list, tuple, np.ndarray)) for x in arr[:64]):
+            return cls._from_host_objects(arr, validity, dev)
+        if arr.dtype.kind == "O" and any(isinstance(x, decimal.Decimal) for x in arr[:64]):
+            raise NotImplementedError(DECIMALS_NOT_PORTED)
         if arr.dtype.kind in ("O", "U", "S"):
             return cls._from_host_strings(arr, validity, dev)
         dt = dtypes.from_numpy(arr.dtype)
@@ -149,10 +162,44 @@ class Column:
         return cls(dt, data, v, n)
 
     @classmethod
+    def _from_host_objects(cls, arr: np.ndarray, validity, dev) -> "Column":
+        """Dictionary-encode host objects (list-valued cells of a pandas
+        object column), as the reference does: the device holds int32 codes
+        in first-seen order, the distinct cells stay in a host object
+        dictionary (``core/lists.py:from_object_column`` makes them a
+        ListColumn). None and NaN cells are nulls."""
+        n = len(arr)
+        isnull = np.array([x is None or (isinstance(x, float) and np.isnan(x))
+                           for x in arr], dtype=bool)
+        codes = np.zeros(n, np.int32)
+        seen: dict = {}
+        uniq: list = []
+        for i, x in enumerate(arr):
+            if isnull[i]:
+                continue
+            key = tuple(x) if isinstance(x, (list, np.ndarray)) else x
+            try:
+                code = seen.get(key)
+            except TypeError:  # an unhashable nested cell: a code of its own
+                code, key = None, None
+            if code is None:
+                code = len(uniq)
+                if key is not None:
+                    seen[key] = code
+                uniq.append(x)
+            codes[i] = code
+        if validity is not None:
+            isnull = isnull | ~np.asarray(validity, dtype=bool)
+        cap = bucket_capacity(n)
+        # explicitly 1-D: np.asarray of equal-length list cells is 2-D
+        cells = np.empty(len(uniq), object)
+        cells[:] = uniq
+        v = _pad_to(~isnull, cap, dev, False) if isnull.any() else None
+        return cls(DType(Kind.DICTIONARY, 32), _pad_to(codes, cap, dev), v, n,
+                   dictionary=cells)
+
+    @classmethod
     def _from_host_strings(cls, arr: np.ndarray, validity, dev) -> "Column":
-        if arr.dtype.kind == "O" and any(
-                isinstance(x, (list, tuple, np.ndarray)) for x in arr[:64]):
-            raise NotImplementedError("list-valued columns are not ported yet")
         import pandas as pd
 
         n = len(arr)
@@ -210,19 +257,22 @@ class Column:
             arr = arr.combine_chunks()
         if pa.types.is_dictionary(arr.type):
             arr = arr.cast(arr.type.value_type)
+        if pa.types.is_decimal(arr.type):
+            raise NotImplementedError(DECIMALS_NOT_PORTED)
         validity = np.asarray(arr.is_valid()) if arr.null_count else None
         if pa.types.is_string(arr.type) or pa.types.is_large_string(arr.type):
             enc = pc.dictionary_encode(arr.fill_null("") if arr.null_count else arr)
-            uniq = np.asarray(enc.dictionary.to_numpy(zero_copy_only=False)).astype(str)
-            order = np.argsort(uniq, kind="stable")
+            # sorted in arrow: UTF-8 byte order is code point order, numpy's
+            order = pc.array_sort_indices(enc.dictionary).to_numpy()
+            uniq = np.asarray(pc.take(enc.dictionary, order).to_numpy(
+                zero_copy_only=False)).astype(str)
             remap = np.empty(len(uniq), np.int32)
             remap[order] = np.arange(len(uniq), dtype=np.int32)
             codes = remap[np.asarray(enc.indices)]
             n = len(arr)
             cap = bucket_capacity(n)
             v = _pad_to(validity, cap, dev, False) if validity is not None else None
-            return cls(dtypes.string, _pad_to(codes, cap, dev), v, n,
-                       dictionary=uniq[order])
+            return cls(dtypes.string, _pad_to(codes, cap, dev), v, n, dictionary=uniq)
         if arr.null_count:
             fill = False if pa.types.is_boolean(arr.type) else 0
             arr = arr.fill_null(pa.scalar(fill, arr.type))

@@ -26,6 +26,7 @@ class Kind:
     DECIMAL = "decimal"      # int64 physical, scale metadata (DECIMAL64 analog)
     STRING = "string"        # dictionary-encoded int32 codes + host values
     DICTIONARY = "dictionary"
+    LIST = "list"            # offsets + child (core/lists.py), param: the child's dtype
 
 
 _INT = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}
@@ -155,7 +156,7 @@ def to_numpy(dt: DType) -> np.dtype:
         return np.dtype(f"datetime64[{dt.param or 'ns'}]")
     if dt.kind == Kind.DURATION:
         return np.dtype(f"timedelta64[{dt.param or 'ns'}]")
-    if dt.kind == Kind.STRING:
+    if dt.kind in (Kind.STRING, Kind.LIST):
         return np.dtype(object)
     if dt.kind == Kind.FLOAT and dt.bits == 16:
         return np.dtype("float32")  # numpy lacks bfloat16; widen

@@ -17,10 +17,7 @@ executor's dispatch are the reference's. Differences:
     parent only the columns the plan reads, and since a parquet scan's
     columns are deferred (``io.read_parquet``), the others are never read
     from disk. The reference prunes only in-memory scans; the result is
-    the same table;
-  * nodes whose ops are not ported yet raise ``NotImplementedError`` and
-    name their ROADMAP queue-1 item by its title: ``ConditionalJoin`` and
-    ``MapFunction`` explode (nested types and the long tail).
+    the same table.
 """
 from __future__ import annotations
 
@@ -458,11 +455,6 @@ def _filter(child: Table, predicate: Expr, needed=None) -> Table:
     return stream_compaction.apply_boolean_mask(child, mask)
 
 
-def _not_ported(what: str, item: str, module: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"{item}: {module})")
-
-
 def _exec_node(n: IR, visitor) -> Table:
     if isinstance(n, DataFrameScan):
         return n._tbl
@@ -543,8 +535,11 @@ def _exec_node(n: IR, visitor) -> Table:
                 cols[out_name] = rolling_ops.rolling(out[vname], window, kind)
         return Table(cols)
     if isinstance(n, ConditionalJoin):
-        raise _not_ported("ConditionalJoin", "nested types and the long tail",
-                          "ops/join.py:conditional_join")
+        left = visitor(n.children[0])
+        right = visitor(n.children[1])
+        predicate, how = n.args
+        return join_ops.conditional_join(left, right,
+                                         lambda pairs: evaluate(predicate, pairs), how)
     if isinstance(n, MergeSorted):
         from ..ops.merge import merge_sorted
 
@@ -561,6 +556,17 @@ def _exec_node(n: IR, visitor) -> Table:
             return Table({out_name: sequence(child.num_rows, device=child.device),
                           **dict(child)})
         if name == "explode":
-            raise _not_ported("MapFunction explode", "nested types", "core/lists.py")
+            from ..core import lists
+
+            (col_name,) = options
+            lc = child[col_name]
+            if lists.is_list_cells(lc):
+                lc = lists.from_object_column(lc)
+            if not isinstance(lc, lists.ListColumn):
+                raise TypeError(f"explode needs a list column, got {lc!r}")
+            parent, flat = lc.explode()
+            return Table({cn: flat if cn == col_name else copying.gather(c, parent.data,
+                                                                          flat.length)
+                          for cn, c in child})
         raise ValueError(f"unknown MapFunction {name!r}")
     raise TypeError(f"cannot execute {type(n).__name__}")

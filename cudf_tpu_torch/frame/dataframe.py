@@ -30,7 +30,7 @@ from ..core import dtypes
 from ..core.column import Column, resolve_device
 from ..core.table import Deferred, Table
 from ..ops import copying, join as join_ops, sorting, stream_compaction as sc, unaryop
-from .series import _ITEM4, Series, _column_from_values, take_indices
+from .series import Series, _column_from_values, take_indices
 
 
 def _unmasked(c: Column) -> Column:
@@ -468,15 +468,23 @@ class DataFrame:
             [n for n, c in self._tbl if dtypes.to_numpy(c.dtype).kind in kinds]))
 
     def hash_values(self, method="murmur3", seed=0):
-        """Per-row murmur3 hash, uint32, equal to the reference's
-        (cudf.DataFrame.hash_values). The other methods (xxhash, md5, sha)
-        wait for ops/crypto_hash.py."""
-        from ..ops import hashing
+        """Per-row hash Series (cudf.DataFrame.hash_values): murmur3 (the
+        default, uint32), xxhash32/xxhash64 (uint32/uint64) or the md5 and
+        sha hex digests (reference: cpp/src/hash/)."""
+        from ..ops import crypto_hash, hashing
 
-        if method != "murmur3":
-            raise NotImplementedError(f"hash_values(method={method!r}) waits for "
-                                      f"ops/crypto_hash.py ({_ITEM4})")
-        return Series(column=hashing.hash_values(self._tbl.columns, seed), name=None)
+        cols = self._tbl.columns
+        if method == "murmur3":
+            out = hashing.hash_values(cols, seed)
+        elif method in ("xxhash32", "xxhash_32"):
+            out = crypto_hash.xxhash_32(cols, seed)
+        elif method in ("xxhash64", "xxhash_64"):
+            out = crypto_hash.xxhash_64(cols, seed)
+        elif method in crypto_hash.DIGESTS:
+            out = crypto_hash.hexdigest(cols, method)
+        else:
+            raise ValueError(f"unknown hash method {method!r}")
+        return Series(column=out, name=None)
 
     # ------------------------------------------------------------ reductions
     def _agg_all(self, method):
@@ -881,9 +889,24 @@ class DataFrame:
         idx = Index(levels[0], names[0]) if len(names) == 1 else MultiIndex(levels, names)
         return Series(column=t["count"], name="count", index=idx)
 
-    def explode(self, column):
-        raise NotImplementedError(f"explode reads a list column, which waits for "
-                                  f"core/lists.py ({_ITEM4})")
+    def explode(self, column, ignore_index=False):
+        """One row per element of the list cells in ``column`` (pandas
+        semantics: an empty or null list keeps one null row, a scalar cell
+        stays as it is, and a row's index label repeats). The parent-row map
+        is built on the device (``core/lists.py:explode_rows``) and every
+        other column, the index with them, follows with one gather."""
+        from ..core import lists
+
+        c = self._tbl[column]
+        lc = (c if isinstance(c, lists.ListColumn) else
+              lists.from_object_column(c) if lists.is_list_cells(c) else None)
+        if lc is None:  # no list cells: pandas returns the rows as they are
+            return self._like(self._tbl, None if ignore_index else self._index)
+        parent, total, values = lists.explode_rows(lc)
+        tbl = self._tbl if ignore_index else self._embed_index(force=True)
+        out = Table({n: values if n == column else copying.gather(tbl[n], parent, total)
+                     for n in tbl.names})
+        return self._like(out) if ignore_index else self._unembed_index(out)
 
     # --------------------------------------------------------------- export
     def to_dict(self, orient="dict"):

@@ -21,9 +21,6 @@ from ..ops import unaryop
 from ..ops.stream_compaction import filter_column
 from ..utils.padding import bucket_capacity
 
-_ITEM4 = "ROADMAP.md §1 item 4"
-
-
 def _column_from_values(data, dev) -> Column:
     """A column from host values; ``None`` is a null, and a numeric
     sequence with ``None`` becomes float64 with NaN (pandas' inference)."""
@@ -747,6 +744,15 @@ class Series:
                          index=["count", "unique", "top", "freq"], dtype=object,
                          name=self.name)
 
+    def explode(self, ignore_index=False):
+        """``DataFrame.explode`` on this Series alone (pandas semantics)."""
+        from ..core.table import Table
+        from .dataframe import DataFrame
+
+        out = DataFrame._from_table(Table({"v": self._col}), self._index).explode(
+            "v", ignore_index)
+        return Series(column=out._tbl["v"], name=self.name, index=out._index)
+
     def pipe(self, func, *a, **kw):
         return func(self, *a, **kw)
 
@@ -914,12 +920,17 @@ class _StringAccessor:
         return self._wrap(str_ops.find(self._s._col, sub))
 
     def split(self, pat=" ", n=-1, expand=False):
-        if not expand:
-            raise NotImplementedError(f"str.split(expand=False) gives a list column, "
-                                      f"which waits for core/lists.py ({_ITEM4})")
+        """expand=True: a frame of the parts; expand=False: a Series of
+        lists, one a row, held on the device as a ListColumn
+        (``strings.split_record``): ``explode`` takes it as it is, and
+        ``to_pandas`` gives the lists."""
         from .dataframe import DataFrame
 
-        return DataFrame._from_table(str_ops.split_expand(self._s._col, pat, n))
+        col = self._s._col
+        if expand:
+            return DataFrame._from_table(str_ops.split_expand(col, pat, n))
+        return Series(column=str_ops.split_record(col, pat, n if n > 0 else -1),
+                      name=self._s.name, index=self._s._index)
 
 
 class _DatetimeAccessor:

@@ -11,11 +11,12 @@ reads, decodes and copies a column only when the column is first used
 ``Table.from_pandas`` does. pyarrow is imported inside the functions, so
 ``import cudf_tpu_torch`` works without it.
 
-``read_parquet`` with ``predicates=`` or an http(s) path reads through
+``read_parquet`` with ``predicates=`` or a remote path (http(s), or
+``s3://`` with SigV4-signed range reads, ``s3.py``) reads through
 ``parquet_ext.py``'s own row-group pruning and range reads
 (``datasource.py``), and ``read_parquet_chunked`` is ``parquet_ext``'s
-chunked reader. Not ported yet: the avro format and ``s3://`` sources
-(ROADMAP queue 1, avro and S3).
+chunked reader. The other readers take a remote path too, read whole
+through its datasource. The avro format is ``avro.py``.
 """
 from __future__ import annotations
 
@@ -28,9 +29,18 @@ from ..core.column import Column, resolve_device
 from ..core.table import Deferred, Table
 
 
-def _not_ported(what: str, item: str, module: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"{item}: {module})")
+_REMOTE = ("http://", "https://", "s3://")
+
+
+def _source(path):
+    """A local path as it is; a remote one as its bytes in a file-like."""
+    if str(path).startswith(_REMOTE):
+        import io as _io
+
+        from .datasource import Datasource
+
+        return _io.BytesIO(Datasource.open(str(path)).read_all())
+    return path
 
 
 def _expand_paths(paths) -> List[str]:
@@ -48,13 +58,12 @@ def read_parquet(paths, columns: Optional[Sequence[str]] = None, filters=None,
     """cudf::io::read_parquet analog (cpp/src/io/functions.cpp:631). One
     file without ``filters`` gives a table of deferred columns; several
     files, or pyarrow ``filters``, are read and copied at once.
-    ``predicates`` ((column, op, literal) conjunctions) and http(s) paths
-    go through ``parquet_ext.read_parquet_pruned``'s own stats pruning and
+    ``predicates`` ((column, op, literal) conjunctions) and remote paths
+    (http(s), s3) go through ``parquet_ext.read_parquet_pruned``'s own stats pruning and
     range reads."""
     dev = resolve_device(device)
     expanded = _expand_paths(paths)
-    if predicates is not None or any(
-            str(p).startswith(("http://", "https://")) for p in expanded):
+    if predicates is not None or any(str(p).startswith(_REMOTE) for p in expanded):
         from ..ops.copying import concatenate_tables
         from .parquet_ext import read_parquet_pruned
 
@@ -128,27 +137,29 @@ def read_parquet_chunked(path, columns: Optional[Sequence[str]] = None,
 def read_csv(path, columns=None, device=None, **kwargs) -> Table:
     import pyarrow.csv as pcsv
 
-    t = Table.from_arrow(pcsv.read_csv(path), device)
+    t = Table.from_arrow(pcsv.read_csv(_source(path)), device)
     return t.select(list(columns)) if columns else t
 
 
 def read_json(path, lines: bool = True, device=None, **kwargs) -> Table:
     from ..utils.real_pandas import pd
 
-    return Table.from_pandas(pd.read_json(path, lines=lines, **kwargs), device)
+    return Table.from_pandas(pd.read_json(_source(path), lines=lines, **kwargs), device)
 
 
 def read_orc(path, columns=None, device=None) -> Table:
     import pyarrow.orc as po
 
-    return Table.from_arrow(po.read_table(path, columns=list(columns) if columns else None),
+    return Table.from_arrow(po.read_table(_source(path),
+                                          columns=list(columns) if columns else None),
                             device)
 
 
 def read_feather(path, columns=None, device=None) -> Table:
     import pyarrow.feather as pf
 
-    return Table.from_arrow(pf.read_table(path, columns=list(columns) if columns else None),
+    return Table.from_arrow(pf.read_table(_source(path),
+                                         columns=list(columns) if columns else None),
                             device)
 
 
@@ -186,16 +197,18 @@ def scan(fmt: str, paths: List[str], columns: Optional[List[str]] = None,
     if fmt == "orc":
         return read_orc(paths[0], columns, device=device)
     if fmt == "avro":
-        raise _not_ported("the avro format", "avro and S3", "io/avro.py")
+        from .avro import read_avro
+
+        return read_avro(paths[0], columns, device=device)
     raise ValueError(f"unknown scan format {fmt}")
 
 
 def write(tbl: Table, fmt: str, path: str) -> None:
     """The IR's ``Sink`` node: write ``tbl`` to ``path`` in format ``fmt``."""
+    from .avro import write_avro
+
     writers = {"parquet": write_parquet, "csv": write_csv, "json": write_json,
-               "orc": write_orc}
-    if fmt == "avro":
-        raise _not_ported("the avro format", "avro and S3", "io/avro.py")
+               "orc": write_orc, "avro": write_avro}
     if fmt not in writers:
         raise ValueError(f"unknown sink format {fmt}")
     writers[fmt](tbl, path)
@@ -231,7 +244,8 @@ def read_text(path, delimiter: str = "\n", byte_range=None, device=None) -> Colu
     the offset is 0) and runs through the first delimiter at or past its
     end, so consecutive ranges split the rows between them."""
     dev = resolve_device(device)
-    with open(path, "rb") as f:
+    src = _source(path)
+    with (src if hasattr(src, "read") else open(src, "rb")) as f:
         if byte_range is not None:
             offset, size = byte_range
             f.seek(offset)

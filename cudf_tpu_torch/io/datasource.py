@@ -6,9 +6,9 @@ The analog of cudf::io::datasource over kvikio (reference:
 cpp/include/cudf/io/datasource.hpp:32, cpp/src/io/utilities/datasource.cpp:
 16-31 — GDS file, mmap, remote S3/HTTP/HDFS). Readers consume a Datasource
 and ask for (offset, size) ranges; remote sources satisfy them with HTTP
-Range requests so row-group pruning never downloads skipped bytes. The
-reference's ``s3://`` source (``io/s3.py``) is not ported yet: opening one
-raises, naming its ROADMAP item.
+Range requests so row-group pruning never downloads skipped bytes;
+``s3://`` sources are ``io/s3.py``'s SigV4-signed range reads over
+``HTTPDatasource``.
 """
 from __future__ import annotations
 
@@ -42,8 +42,9 @@ class Datasource:
             return BytesDatasource(bytes(src))
         s = str(src)
         if s.startswith("s3://"):
-            raise NotImplementedError("s3:// sources are not ported yet (ROADMAP "
-                                      "queue 1, avro and S3: io/s3.py)")
+            from .s3 import S3Datasource
+
+            return S3Datasource(s)
         if s.startswith("http://") or s.startswith("https://"):
             return HTTPDatasource(s)
         return FileDatasource(s)

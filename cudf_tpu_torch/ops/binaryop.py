@@ -57,7 +57,10 @@ class _Scalar:
         scalar tensor combines with tensors on any device)."""
         v = self.value
         if isinstance(v, (np.datetime64, np.timedelta64)):
-            v = v.astype(dtypes.to_numpy(dt)).astype(np.int64)
+            # the value in dt's unit: a duration stays a duration (its count
+            # of days is not a count of dt's microseconds)
+            kind = "m" if isinstance(v, np.timedelta64) else "M"
+            v = v.astype(f"{kind}8[{dt.param or 'ns'}]").astype(np.int64)
         return torch.tensor(dt.numpy_physical.type(v).item(), dtype=dt.physical)
 
 

@@ -30,8 +30,12 @@ Not copied from the reference, which built them around TPU compile limits:
 the word and sorted N:1 sort joins, the round-synchronous hash probe and
 binary-search lanes, the probe-side chunking past its compile envelope,
 the ``distinct_hint`` memo and the ``CUDF_TPU_SORTJOIN_PAYLOADS`` knob.
-Their results are what both lanes here give. ``conditional_join`` and
-``mixed_join`` come with the expression slice.
+Their results are what both lanes here give.
+
+``conditional_join`` joins on any row-pair predicate over blocks of left
+rows crossed with the right table, and ``mixed_join`` is an equi-join on
+this dispatch (so the probe kernel on a CUDA table) whose pairs a residual
+predicate filters.
 """
 from __future__ import annotations
 
@@ -319,3 +323,197 @@ def cross_join(left: Table, right: Table) -> Table:
         out[name if name not in lnames else name + "_y"] = gather(
             right[name], right_idx, n_out)
     return Table(out)
+
+
+# Device bytes one (left, right) pair of a conditional join's block holds
+# at its peak: its index, left and right rows (int64 each), the gathered
+# predicate columns (8 bytes each, a few) with a gather's clamped indices,
+# and the predicate's bool temporaries.
+PAIR_BYTES = 128
+# Pairs in a block where no memory limit applies (a CPU table without a
+# chunk limit, or a CUDA table whose whole cross product fits).
+MAX_BLOCK_PAIRS = 1 << 24
+
+
+class _RecordingPairs:
+    """A pair table that records which columns the predicate reads."""
+
+    def __init__(self, tbl: Table):
+        self._tbl = tbl
+        self.accessed = set()
+        self.saw_all = False
+
+    @property
+    def names(self):
+        self.saw_all = True
+        return self._tbl.names
+
+    @property
+    def num_rows(self):
+        return self._tbl.num_rows
+
+    def __contains__(self, name):
+        return name in self._tbl
+
+    def __getitem__(self, name):
+        self.accessed.add(name)
+        return self._tbl[name]
+
+    def __iter__(self):
+        self.saw_all = True
+        return iter(self._tbl)
+
+
+def _predicate_columns(left: Table, right: Table, predicate) -> set:
+    """The pair columns the predicate reads, found on a 1 x 1 cross tile."""
+    probe = cross_join(left.slice(0, min(left.num_rows, 1)),
+                       right.slice(0, min(right.num_rows, 1)))
+    rec = _RecordingPairs(probe)
+    try:
+        predicate(rec)
+        needed = set(probe.names) if rec.saw_all else set(rec.accessed)
+    except Exception:  # noqa: BLE001 - a predicate that fails on the probe reads all
+        needed = set(probe.names)
+    if not needed and probe.names:  # a constant predicate still needs a length
+        needed = {probe.names[0]}
+    return needed
+
+
+def _block_rows(nl: int, nr: int, dev) -> int:
+    """Left rows a block: the pair tile within the memory an op may use on
+    ``dev`` (``chunked.memory_limit``), else MAX_BLOCK_PAIRS pairs. The
+    tile's pairs are held to a power of two, the capacity bucket they are
+    padded to."""
+    from .chunked import memory_limit
+
+    need = max(nl, 1) * max(nr, 1) * PAIR_BYTES
+    limit = memory_limit(dev, need)
+    if limit is None and need <= MAX_BLOCK_PAIRS * PAIR_BYTES:
+        return max(nl, 1)
+    pairs = MAX_BLOCK_PAIRS if limit is None else max(limit // PAIR_BYTES, 1)
+    pairs = 1 << (pairs.bit_length() - 1)
+    return max(1, min(max(nl, 1), pairs // max(nr, 1)))
+
+
+def _with_null_right(matched: Table, unmatched: Table) -> Table:
+    """``matched`` ++ the ``unmatched`` left rows with null right columns."""
+    dev = unmatched.device
+    cols = {}
+    for name in matched.names:
+        if name in unmatched.names:
+            cols[name] = unmatched[name]
+        else:
+            src = matched[name]
+            cols[name] = Column.from_scalar(None, unmatched.num_rows, src.dtype, dev)
+            cols[name].dictionary = src.dictionary
+    return concatenate_tables([matched, Table({k: cols[k] for k in matched.names})])
+
+
+def conditional_join(left: Table, right: Table, predicate, how: str = "inner",
+                     block_rows: int = None) -> Table:
+    """Join on an arbitrary row-pair predicate (cudf::conditional_*_join,
+    cpp/src/join/conditional_join.cu). how: inner/left/semi/anti.
+
+    ``predicate(pairs: Table) -> Column[bool]`` sees each block of left rows
+    crossed with the whole right table, holding only the columns it reads
+    (a right column whose name a left one has takes the suffix ``_y``).
+    Each block sizes and retrieves its matching (left, right) index pairs
+    at once (``torch.nonzero``) and then drops its tile, so the device
+    holds O(block x |R|) transiently and O(|L| + |R| + out) after; one
+    gather per output column follows. Rows come in left-row order, and
+    within a left row in right-row order, whatever the block size, which is
+    taken from the memory the card has free (``_block_rows``) unless
+    given."""
+    from .stream_compaction import apply_boolean_mask
+
+    if how not in ("inner", "left", "semi", "anti"):
+        raise ValueError(f"conditional_join: unsupported how {how!r}")
+    nl, nr = left.num_rows, right.num_rows
+    lset = set(left.names)
+    rmap = {n: (n if n not in lset else n + "_y") for n in right.names}
+    needed = _predicate_columns(left, right, predicate)
+    dev = left.device if left.num_columns else right.device
+    if block_rows is None:
+        block_rows = _block_rows(nl, nr, dev)
+    need_flags = how != "inner"
+    matched = torch.zeros(nl + 1, dtype=torch.bool, device=dev)
+    l_parts, r_parts = [], []
+    for start in range(0, nl, block_rows):
+        n_out = min(block_rows, nl - start) * nr
+        if n_out == 0:
+            continue
+        j = torch.arange(bucket_capacity(n_out), device=dev)
+        li, ri = j // nr + start, j % nr
+        cols = {n: gather(left[n], li, n_out) for n in left.names if n in needed}
+        cols.update({c: gather(right[r], ri, n_out) for r, c in rmap.items()
+                     if c in needed})
+        mask = predicate(Table(cols))
+        keep = mask.data[:n_out].to(torch.bool)
+        if mask.validity is not None:
+            keep &= mask.validity[:n_out]
+        hit = torch.nonzero(keep).squeeze(1)
+        if need_flags:
+            matched[li[hit]] = True
+        if how in ("inner", "left"):
+            l_parts.append(li[hit])
+            r_parts.append(ri[hit])
+    if how in ("semi", "anti"):
+        flags = matched[:nl] if how == "semi" else ~matched[:nl]
+        data = torch.zeros(bucket_capacity(nl), dtype=torch.bool, device=dev)
+        data[:nl] = flags
+        return apply_boolean_mask(left, Column(dtypes.bool_, data, None, nl))
+    lidx = torch.cat(l_parts) if l_parts else torch.zeros(0, dtype=torch.int64, device=dev)
+    ridx = torch.cat(r_parts) if r_parts else torch.zeros(0, dtype=torch.int64, device=dev)
+    total = lidx.shape[0]
+    cap = bucket_capacity(total)
+    lg = torch.zeros(cap, dtype=torch.int64, device=dev)
+    rg = torch.zeros(cap, dtype=torch.int64, device=dev)
+    lg[:total], rg[:total] = lidx, ridx
+    inner = Table({**{n: gather(left[n], lg, total) for n in left.names},
+                   **{rmap[n]: gather(right[n], rg, total) for n in right.names}})
+    if how == "inner":
+        return inner
+    data = torch.zeros(bucket_capacity(nl), dtype=torch.bool, device=dev)
+    data[:nl] = ~matched[:nl]
+    return _with_null_right(inner, apply_boolean_mask(
+        left, Column(dtypes.bool_, data, None, nl)))
+
+
+def mixed_join(left: Table, right: Table, left_on, right_on, predicate,
+               how: str = "inner", nulls_equal: bool = False) -> Table:
+    """Equality keys plus a residual predicate (cudf::mixed_*_join,
+    cpp/src/join/mixed_join.cu). how: inner/left/semi/anti.
+
+    The equi-join runs on ``join``'s dispatch (the hash-table lane and its
+    probe kernel where it applies), then the predicate filters its pairs.
+    For left/semi/anti the pairs carry their left row id, and a scatter of
+    the surviving ids marks the left rows that matched. Rows of inner come
+    in the equi-join's order, of semi and anti in left-row order, and left
+    is inner's rows followed by the unmatched left rows with null right
+    columns."""
+    from .filling import sequence
+    from .stream_compaction import apply_boolean_mask
+
+    if how not in ("inner", "left", "semi", "anti"):
+        raise ValueError(f"mixed_join: unsupported how {how!r}")
+    left_on, right_on = list(left_on), list(right_on)
+    if how == "inner":
+        eq = join(left, right, left_on, right_on, "inner", nulls_equal)
+        return apply_boolean_mask(eq, predicate(eq))
+    lid = "__mixed_lid"
+    nl = left.num_rows
+    dev = left.device
+    eq = join(left.with_column(lid, sequence(nl, device=dev)), right, left_on, right_on,
+              "inner", nulls_equal)
+    mask = predicate(eq)
+    keep = mask.valid_mask() & mask.data.to(torch.bool)
+    ids = eq[lid].data
+    matched = torch.zeros(nl + 1, dtype=torch.bool, device=dev)
+    matched[torch.where(keep, ids, nl)] = True
+    flags = torch.zeros(bucket_capacity(nl), dtype=torch.bool, device=dev)
+    flags[:nl] = matched[:nl] if how == "semi" else ~matched[:nl]
+    rows = apply_boolean_mask(left, Column(dtypes.bool_, flags, None, nl))
+    if how in ("semi", "anti"):
+        return rows
+    hit = apply_boolean_mask(eq, Column(dtypes.bool_, keep, None, eq.num_rows)).drop([lid])
+    return _with_null_right(hit, rows)

@@ -69,14 +69,31 @@ def _dictionary_of(d: Optional[np.ndarray]) -> np.ndarray:
     return d if d is not None else np.array([], dtype=str)
 
 
+def _same_dictionaries(dicts) -> bool:
+    return all(d is dicts[0] or (len(d) == len(dicts[0]) and (d == dicts[0]).all())
+               for d in dicts[1:])
+
+
+def _union_positions(dicts):
+    """(sorted union, each dictionary's positions in it). One stable sort
+    of the concatenation: on sorted dictionaries it merges their runs in
+    linear time, where ``np.unique`` sorts from scratch; the union is
+    ``np.unique``'s all the same."""
+    cat = np.concatenate([d.astype(str) for d in dicts])
+    order = np.argsort(cat, kind="stable")
+    srt = cat[order]
+    first = np.ones(len(srt), bool)
+    first[1:] = srt[1:] != srt[:-1]
+    pos = np.empty(len(cat), np.int64)
+    pos[order] = np.cumsum(first) - 1
+    return srt[first], np.split(pos, np.cumsum([len(d) for d in dicts])[:-1])
+
+
 def union_dictionary(dicts: Sequence[Optional[np.ndarray]]) -> Optional[np.ndarray]:
     """The sorted union of string dictionaries; None when they are all one
     (no recode needed)."""
     dicts = [_dictionary_of(d) for d in dicts]
-    if all(d is dicts[0] or (len(d) == len(dicts[0]) and (d == dicts[0]).all())
-           for d in dicts[1:]):
-        return None
-    return np.unique(np.concatenate([d.astype(str) for d in dicts]))
+    return None if _same_dictionaries(dicts) else _union_positions(dicts)[0]
 
 
 def recode(col: Column, dictionary: np.ndarray) -> Column:
@@ -88,10 +105,11 @@ def recode(col: Column, dictionary: np.ndarray) -> Column:
 
 def unify_dictionaries(cols: List[Column]) -> List[Column]:
     """Recode string columns onto the union dictionary (sorted)."""
-    merged = union_dictionary([c.dictionary for c in cols])
-    if merged is None:
+    dicts = [_dictionary_of(c.dictionary) for c in cols]
+    if _same_dictionaries(dicts):
         return list(cols)
-    return [recode(c, merged) for c in cols]
+    merged, positions = _union_positions(dicts)
+    return [_remap_codes(c, p, merged) for c, p in zip(cols, positions)]
 
 
 def align_string_operands(lhs: Column, rhs: Column) -> Tuple[Column, Column]:
@@ -827,10 +845,20 @@ def split_expand(col: Column, delimiter: str = " ", maxsplit: int = -1) -> Table
 
 
 def split_record(col: Column, delimiter: str = " ", maxsplit: int = -1):
-    """split into a list column of tokens per row (strings::split_record)."""
-    raise NotImplementedError("split_record returns a list column, which is not "
-                              "ported yet (ROADMAP queue 1, nested types: "
-                              "core/lists.py)")
+    """split into a ListColumn of tokens per row (strings::split_record).
+    Each distinct value is split once, by pyarrow's ``split_pattern`` (which
+    splits as ``str.split(delimiter, maxsplit)`` does), and its tokens
+    dictionary-encoded by ``Column.from_arrow``; the rows' lists are built
+    on the device from the codes (``core/lists.py:from_codes``)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    from ..core.lists import from_codes
+
+    parts = pc.split_pattern(pa.array(_dict_values(col), type=pa.string()), delimiter,
+                             max_splits=None if maxsplit < 0 else maxsplit)
+    counts = pc.list_value_length(parts).to_numpy(zero_copy_only=False).astype(np.int64)
+    return from_codes(col, counts, Column.from_arrow(pc.list_flatten(parts), col.device))
 
 
 def partition_strings(col: Column, delimiter: str = " ") -> Table:

@@ -6,8 +6,7 @@ Analog of cpp/src/text/. Dictionary encoding makes the host the place for
 value-level text work: each distinct string is processed once, and the
 results come back to the rows through the codes. ``count_tokens`` counts on
 the device over the dictionary's byte matrix (``strings._dict_device_bytes``).
-Functions whose result is a list column (``wordpiece_tokenize``) raise until
-list columns are ported (ROADMAP queue 1, nested types).
+``wordpiece_tokenize`` returns a ``core/lists.py`` ListColumn.
 """
 from __future__ import annotations
 
@@ -275,10 +274,22 @@ class WordPieceVocabulary:
 
 def wordpiece_tokenize(col: Column, vocab: WordPieceVocabulary,
                        max_tokens_per_row: int = 64):
-    """Token ids per row as a list column (nvtext::wordpiece_tokenize)."""
-    raise NotImplementedError("wordpiece_tokenize returns a list column, which is "
-                              "not ported yet (ROADMAP queue 1, nested types: "
-                              "core/lists.py)")
+    """Token ids per row as a ListColumn (nvtext::wordpiece_tokenize): each
+    distinct value is tokenized once on the host, and the rows' lists are
+    built on the device from the codes (``core/lists.py:from_codes``)."""
+    from ..core.lists import from_codes
+
+    per_value = []
+    for s in _dict_values(col).tolist():
+        ids: List[int] = []
+        for w in s.split():
+            ids.extend(vocab.encode_word(w))
+            if len(ids) >= max_tokens_per_row:
+                break
+        per_value.append(ids[:max_tokens_per_row])
+    counts = np.fromiter(map(len, per_value), np.int64, len(per_value))
+    flat = np.fromiter((i for ids in per_value for i in ids), np.int32, int(counts.sum()))
+    return from_codes(col, counts, Column.from_numpy(flat, device=col.device))
 
 
 class BPEMergePairs:

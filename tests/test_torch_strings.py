@@ -150,9 +150,12 @@ def test_concat_unify_and_encode_scalar_match_reference(cols):
 
 
 def test_split_record_needs_list_columns():
-    _, tc = _pair(np.array(["a b"], object))
-    with pytest.raises(NotImplementedError, match="queue 1, nested types"):
-        TS.split_record(tc)
+    """split_record raised until list columns were ported; it now returns a
+    ListColumn equal to the reference's (tests/test_torch_lists.py holds it
+    on more values)."""
+    rc, tc = _pair(np.array(["a b", None, "c"], object))
+    assert TS.split_record(tc).to_pylist() == RS.split_record(rc).to_pylist() == \
+        [["a", "b"], None, ["c"]]
 
 
 # ------------------------------------------------------------------ regex
