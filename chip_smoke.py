@@ -129,6 +129,27 @@ Phases (each prints a line; any failure raises and exits nonzero):
                127.0.0.1 (every request SigV4-signed) equal to the local
                read, and 1M rows written to avro with the null codec and read
                back through io.scan, and with deflate through IR.Scan, exactly.
+ 15. accelerator and decimals — beside the phases whose data it reuses:
+               cudf_tpu_torch.prewarm(60M) in a thread while phase 3's rows
+               are generated; after phase 3, l_extendedprice from_floats at
+               scale -2 and a seeded l_discount 0..10 at -2, price * (1 -
+               disc) at -4 with its sum, round, rescale and compare exact
+               against numpy int64, groupby(l_discount) on the one-hot
+               kernel, and decimal128 on 16M rows (mul, a square past 2^64,
+               rescale, compare, the sort by order_operands; division of 1M
+               rows on the host against Python's decimal); after phase 12's
+               quick start, the same quick start as pandas code through
+               pandas_accel.install() (one-hot launches, no fallback, equal
+               to the frame's answer exactly); after phase 5, P.merge of the
+               filtered orders with lineitem (one probe launch, no
+               fallback) and the join on decimal64 keys (probe launches);
+               in phase 11, python -m cudf_tpu_torch.pandas on a script
+               holding the quick start; the quick start once under
+               utils.tracing.profiler_trace (its groupby_aggregate range
+               in the trace); the first sort_by_key of 16M keys in a
+               fresh process with and without prewarm; last, benchmarks/pandas_compat.py's
+               49 cases through the accelerator (pass rate 1.00), and
+               neither jax nor cudf_tpu in sys.modules.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -225,6 +246,10 @@ def ctypes_us(iters: int = 20000) -> float:
     return (time.perf_counter() - t0) / iters * 1e6
 
 
+# the ranges that cudf_tpu_torch.utils.tracing.trace_op opens
+TRACED = {"groupby_aggregate", "join", "sort_by_key", "DataFrame.merge"}
+
+
 def device_breakdown(fn, top: int = 6) -> str:
     """Device time of one fn() call by kernel, from torch.profiler (CUPTI):
     the ``top`` kernels, their share of the summed kernel time, and the
@@ -244,8 +269,10 @@ def device_breakdown(fn, top: int = 6) -> str:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     span = f"; CUDA-event span of the call {start.elapsed_time(end):.3f} ms"
+    # a range of utils/tracing.py spans its kernels on the device too: not a kernel
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and e.key not in TRACED]
     busy = sum(e.self_device_time_total for e in kern)
     if busy == 0:
         return "profiler saw no device time (not measured)" + span
@@ -432,7 +459,7 @@ def build(gpu: str) -> None:
     from cudf_tpu_torch import kernels
 
     shutil.rmtree(kernels.BUILD, ignore_errors=True)  # build from the sources
-    names = sorted(p.stem for p in kernels.CSRC.glob("*.cu"))
+    names = kernels.sources()
     t0 = time.perf_counter()
     kernels.build_all(names)
     for name in names:
@@ -2691,6 +2718,503 @@ def nested_s3(gpu: str, scan_path: str, v) -> None:
     _nested_done(t0)
 
 
+# --------------------------------------------------------------- phase 15
+# The accelerator and decimal phase runs beside the phases whose data it
+# reuses: the README quick start through cudf_tpu_torch.pandas_accel and the
+# decimal64 ops, their groupby and the decimal128 ops on phase 3's 60M
+# lineitem rows, the accelerator's merge and the join on decimal64 keys on
+# phase 5's tables; the runner subprocess and the compatibility battery
+# last.
+ACCEL = {"seconds": 0.0, "onehot_launches": 0, "probe_launches": 0}
+DEC128_ROWS = CUT_ROWS        # decimal128 mul, rescale, compare and sort
+DEC_SAMPLE = 1_000_000        # of them held to Python ints where int64 cannot hold them
+DEC_DIV_ROWS = 1_000_000      # decimal128 division on the host
+RUNNER_ROWS = 1_000_000       # the runner subprocess's frame
+RUNNER_SCRIPT = """\
+import json
+import numpy as np
+import pandas as pd                      # the accelerator's module under the runner
+import cudf_tpu_torch.pandas as accel
+from cudf_tpu_torch.kernels import hashtable as ht
+from cudf_tpu_torch.kernels import onehot_groupby as k
+from cudf_tpu_torch.utils.real_pandas import pd as real_pd
+
+rng = np.random.default_rng(15)
+n = {rows}
+data = {{"a": rng.integers(0, 3, n), "b": rng.integers(0, 2, n),
+         "v": rng.uniform(900.0, 105000.0, n).astype(np.float32)}}
+aggs = dict(avg=("v", "mean"), s=("v", "sum"), n=("v", "size"))
+out = pd.DataFrame(data).dropna().groupby(["a", "b"]).agg(**aggs).to_pandas()
+want = real_pd.DataFrame(data).astype({{"v": np.float64}}).groupby(["a", "b"]).agg(**aggs)
+np.testing.assert_array_equal(out["n"].to_numpy(), want["n"].to_numpy())
+np.testing.assert_allclose(out["avg"], want["avg"], rtol=1e-6)
+np.testing.assert_allclose(out["s"], want["s"], rtol=1e-5)
+print(json.dumps({{"accelerated": bool(getattr(pd, "__cudf_tpu_accel__", False)),
+                  "groups": len(out), "onehot_launches": k.groupby_sum_count.launches,
+                  "probe_launches": ht.probe_table.launches,
+                  "fallbacks": accel.fallback_stats()}}))
+"""
+
+
+def _accel_done(t0: float) -> None:
+    ACCEL["seconds"] += time.perf_counter() - t0
+
+
+def _on_card(arr):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(arr)).cuda()
+
+
+def _exact(what: str, got, want) -> None:
+    """A device tensor equal to a host array, every element."""
+    import torch
+
+    if not torch.equal(got, _on_card(want)):
+        raise AssertionError(f"{what}: differs from the numpy oracle")
+
+
+def accel_readme(gpu: str, df, frame) -> None:
+    """The README quick start as pandas code through
+    ``cudf_tpu_torch.pandas_accel.install()``: P.DataFrame(phase 3's host
+    frame) -> dropna -> groupby(KEYS).agg(mean, sum, size) -> to_pandas.
+    Equal to the port's frame path exactly and to pandas within the frame
+    phase's tolerance; one-hot launches >= 1, no probe, no fallback."""
+    import cudf_tpu_torch.pandas_accel as accel
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.kernels import onehot_groupby as k
+
+    t_start = time.perf_counter()
+    q1 = df[KEYS + ["l_extendedprice"]]
+    aggs = dict(avg=("l_extendedprice", "mean"), s=("l_extendedprice", "sum"),
+                n=("l_extendedprice", "size"))
+    P = accel.install()
+    try:
+        before = accel.fallback_stats()
+        k.groupby_sum_count.launches = 0
+        ht.probe_table.launches = 0
+        xdf = P.DataFrame(q1)
+        out, first_s = synced(lambda: xdf.dropna().groupby(KEYS).agg(**aggs).to_pandas())
+        launches = k.groupby_sum_count.launches
+        if launches < 1:
+            raise AssertionError("the accelerator's quick start did not launch the one-hot "
+                                 "kernel")
+        if ht.probe_table.launches:
+            raise AssertionError("the accelerator's quick start launched the probe kernel")
+        _, warm_s = synced(lambda: xdf.dropna().groupby(KEYS).agg(**aggs))
+        _, frame_s = synced(lambda: frame.dropna().groupby(KEYS).agg(**aggs))
+        traced = traced_ranges(lambda: xdf.dropna().groupby(KEYS).agg(**aggs))
+        if accel.fallback_stats() != before:
+            raise AssertionError(f"the accelerator's quick start fell back: "
+                                 f"{accel.fallback_stats()}")
+    finally:
+        accel.uninstall()
+    pd.testing.assert_frame_equal(out, frame.dropna().groupby(KEYS).agg(**aggs).to_pandas(),
+                                  check_exact=True)
+    want = (q1.dropna().astype({"l_extendedprice": np.float64})
+            .groupby(KEYS, sort=True)["l_extendedprice"].agg(["mean", "sum", "size"]))
+    np.testing.assert_array_equal(out["n"].to_numpy(), want["size"].to_numpy())
+    np.testing.assert_allclose(out["avg"], want["mean"], rtol=1e-6)
+    np.testing.assert_allclose(out["s"], want["sum"], rtol=1e-5)
+    log(f"accel: [{gpu}] P = pandas_accel.install(); P.DataFrame({len(q1)} rows).dropna()"
+        f".groupby(KEYS).agg(mean, sum, size).to_pandas() {first_s:.3f} s (first, ingest "
+        f"included), {warm_s * 1e3:.2f} ms warm without to_pandas, the frame's "
+        f"{frame_s * 1e3:.2f} ms beside it (host clock, synchronized); one-hot launches "
+        f"{launches}, no fallback; equal to the frame path exactly and to pandas (sizes "
+        f"exact, mean rtol 1e-6, sum rtol 1e-5); {time.perf_counter() - t_start:.1f} s "
+        f"with the checks")
+    log(f"tracing: [{gpu}] {traced}")
+    ACCEL["onehot_launches"] += launches
+    _accel_done(t_start)
+
+
+def traced_ranges(fn) -> str:
+    """One fn() call under ``utils.tracing.profiler_trace``: the chrome trace
+    it writes must hold the ``groupby_aggregate`` range that
+    ``ops/groupby.py``'s ``trace_op`` opens, and device kernels. Also the
+    host cost of an empty ``annotate`` range, with ``performance_tracking``
+    off (the default)."""
+    import torch
+
+    from cudf_tpu_torch.utils import tracing
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        stop = tracing.profiler_trace(tmp)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            stop()
+        files = [os.path.join(d, f) for d, _, fs in os.walk(tmp) for f in fs
+                 if f.endswith(".json")]
+        if not files:
+            raise AssertionError("profiler_trace wrote no trace")
+        events = json.load(open(files[0]))["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "groupby_aggregate"
+              and e.get("cat") == "user_annotation"]
+    spans = [e for e in events if e.get("name") == "groupby_aggregate"
+             and e.get("cat") == "gpu_user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if len(ranges) != 1 or not kernels:
+        raise AssertionError(f"the trace holds {len(ranges)} groupby_aggregate ranges and "
+                             f"{len(kernels)} device kernels")
+    n = 20_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tracing.annotate("x"):
+            pass
+    empty_us = (time.perf_counter() - t0) / n * 1e6
+    span = (f", its device span {spans[0].get('dur', 0):.0f} us" if spans
+            else ", no device span")
+    return (f"one warm quick start under utils.tracing.profiler_trace: the chrome trace "
+            f"holds one groupby_aggregate range of {ranges[0].get('dur', 0):.0f} us on the "
+            f"host{span}, and {len(kernels)} device kernels; an empty annotate range costs "
+            f"{empty_us:.2f} us of host time (mean of {n}, performance_tracking off, "
+            f"NVTX and record_function on)")
+
+
+def accel_merge(gpu: str, df, od, want) -> None:
+    """P.merge of phase 5's filtered orders (7,289,153 rows) with the 60M
+    lineitem rows through the accelerator: one probe launch, no fallback,
+    row for row equal to the oracle, as phase 12's DataFrame.merge."""
+    import cudf_tpu_torch.pandas_accel as accel
+    from cudf_tpu_torch.kernels import hashtable as ht
+
+    t_start = time.perf_counter()
+    keep = od["o_orderdate"].to_numpy() < Q3_DAY
+    P = accel.install()
+    try:
+        before = accel.fallback_stats()
+        left = P.DataFrame(df[["l_orderkey", "l_extendedprice"]])
+        right = P.DataFrame(od[keep])
+        ht.probe_table.launches = 0
+
+        def merge():
+            return P.merge(left, right, left_on="l_orderkey", right_on="o_orderkey")
+
+        merged, first_s = synced(merge)
+        launches = ht.probe_table.launches
+        if launches != 1:
+            raise AssertionError(f"P.merge launched the probe kernel {launches} times")
+        _, warm_s = synced(merge)
+        if accel.fallback_stats() != before:
+            raise AssertionError(f"P.merge fell back: {accel.fallback_stats()}")
+    finally:
+        accel.uninstall()
+    assert_rows(_columns(merged._fast_obj().table, JOIN_COLS), want, "accelerator merge",
+                False)
+    log(f"accel: [{gpu}] P.merge({len(df)} lineitem rows, {int(keep.sum())} filtered "
+        f"orders) -> {len(merged)} rows {first_s * 1e3:.2f} ms (first, ingest included), "
+        f"{warm_s * 1e3:.2f} ms warm (host clock, synchronized); probe launches {launches}, "
+        f"no fallback; equal to the oracle row for row; {time.perf_counter() - t_start:.1f} "
+        f"s with the checks")
+    ACCEL["probe_launches"] += launches
+    _accel_done(t_start)
+
+
+def accel_runner(gpu: str, tmp: str) -> None:
+    """python -m cudf_tpu_torch.pandas on a script holding the quick start
+    (RUNNER_ROWS rows): it checks itself against pandas and prints its
+    launch counts and fallback stats, which must show the one-hot kernel
+    and no fallback."""
+    t_start = time.perf_counter()
+    script = os.path.join(tmp, "quick_start.py")
+    with open(script, "w") as f:
+        f.write(RUNNER_SCRIPT.format(rows=RUNNER_ROWS))
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    r = subprocess.run([sys.executable, "-m", "cudf_tpu_torch.pandas", script],
+                       capture_output=True, text=True, timeout=300, cwd=tmp, env=env)
+    if r.returncode != 0:
+        raise AssertionError(f"the runner failed ({r.returncode}): {r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    if not res["accelerated"] or res["onehot_launches"] < 1 or res["fallbacks"]:
+        raise AssertionError(f"the runner's script did not run on the engine: {res}")
+    log(f"accel: [{gpu}] python -m cudf_tpu_torch.pandas quick_start.py ({RUNNER_ROWS} "
+        f"rows) {time.perf_counter() - t_start:.1f} s (host clock, process start "
+        f"included): {json.dumps(res)}; equal to pandas")
+    _accel_done(t_start)
+
+
+PREWARM_ROWS = CUT_ROWS
+PREWARM_SCRIPT = """\
+import json, time
+import numpy as np
+import torch
+import cudf_tpu_torch
+from cudf_tpu_torch.core.column import Column
+from cudf_tpu_torch.core.table import Table
+from cudf_tpu_torch.ops.sorting import sort_by_key
+
+n, warm = {rows}, {warm}
+keys = np.random.default_rng(15).integers(0, 1 << 40, n)
+tbl = Table({{"k": Column.from_numpy(keys, device="cuda")}})
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+if warm:
+    cudf_tpu_torch.prewarm(n, background=False)
+t1 = time.perf_counter()
+out = sort_by_key(tbl, ["k"])
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+sort_by_key(tbl, ["k"])
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+assert np.array_equal(out["k"].to_numpy(), np.sort(keys))
+print(json.dumps({{"prewarm_s": t1 - t0, "first_ms": (t2 - t1) * 1e3,
+                  "second_ms": (t3 - t2) * 1e3}}))
+"""
+
+
+def prewarm_first_call(gpu: str) -> None:
+    """The first sort_by_key of PREWARM_ROWS int64 keys in a fresh process,
+    without ``cudf_tpu_torch.prewarm`` and after it, then a second call;
+    each process makes its CUDA context and its column before the clock
+    starts, so the two first calls differ by what prewarm did."""
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    res = {}
+    for warm in (False, True):
+        r = subprocess.run([sys.executable, "-c",
+                            PREWARM_SCRIPT.format(rows=PREWARM_ROWS, warm=warm)],
+                           capture_output=True, text=True, timeout=300, cwd=root, env=env)
+        if r.returncode != 0:
+            raise AssertionError(f"the prewarm probe failed ({r.returncode}): "
+                                 f"{r.stderr[-3000:]}")
+        res[warm] = json.loads(r.stdout.strip().splitlines()[-1])
+    cold, warm = res[False], res[True]
+    log(f"prewarm: [{gpu}] first sort_by_key of {PREWARM_ROWS} int64 keys in a fresh "
+        f"process: {cold['first_ms']:.2f} ms without prewarm (second call "
+        f"{cold['second_ms']:.2f} ms), {warm['first_ms']:.2f} ms after "
+        f"prewarm({PREWARM_ROWS}, background=False), which took "
+        f"{warm['prewarm_s'] * 1e3:.2f} ms with the kernels built already (second call "
+        f"{warm['second_ms']:.2f} ms); host clock, synchronized; both sorted exactly; "
+        f"{time.perf_counter() - t_start:.1f} s with process starts")
+    _accel_done(t_start)
+
+
+def accel_battery(gpu: str) -> None:
+    """benchmarks/pandas_compat.py's 49 cases (its CASES, _data and
+    _compare) through the accelerator on the card; the pass rate must be
+    1.00. Then neither jax nor cudf_tpu may have been imported."""
+    import importlib.util
+    import traceback
+
+    import cudf_tpu_torch.pandas_accel as accel
+
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "pandas_compat", os.path.join(root, "benchmarks", "pandas_compat.py"))
+    battery = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(battery)
+    df, other = battery._data()
+    passed, fast, failures = 0, 0, []
+    P = accel.install()
+    try:
+        for name, fn in battery.CASES:
+            before = accel.fallback_stats()
+            try:
+                ok = battery._compare(fn(P, df, other), fn(pd, df.copy(), other.copy()))
+            except Exception:  # a case that raises is a failed case, reported below
+                ok = False
+                failures.append(f"{name}: {traceback.format_exc(limit=2).splitlines()[-1]}")
+            passed += bool(ok)
+            fast += bool(ok) and accel.fallback_stats() == before
+    finally:
+        accel.uninstall()
+    total = len(battery.CASES)
+    log(f"accel: [{gpu}] benchmarks/pandas_compat.py battery: {passed}/{total} passed, "
+        f"pass rate {passed / total:.3f}, fast rate {fast / total:.3f} "
+        f"({time.perf_counter() - t_start:.1f} s, host clock)")
+    if passed < total:
+        raise AssertionError("battery failures: " + "; ".join(failures))
+    bad = [m for m in sys.modules if m in ("jax", "cudf_tpu") or m.startswith(("jax.",
+                                                                              "cudf_tpu."))]
+    if bad:
+        raise AssertionError(f"the port imported {bad[:5]}")
+    log("accel: neither jax nor cudf_tpu is in sys.modules")
+    _accel_done(t_start)
+
+
+def decimal_ops(gpu: str, tbl, df) -> None:
+    """On phase 3's rows: l_extendedprice from_floats at scale -2, a seeded
+    l_discount of integers 0..10 at scale -2 (TPC-H's 0.00..0.10), and
+    price * (1 - disc) at scale -4, its int64 sum exact against numpy's;
+    round (half even), rescale (half away from zero) and compare against
+    numpy int64 on the unscaled data; groupby(l_discount) of the f32 price;
+    then the decimal128 ops (decimal128_ops)."""
+    from cudf_tpu_torch import AggSpec, Column, Table, groupby_aggregate
+    from cudf_tpu_torch.kernels import onehot_groupby as k
+    from cudf_tpu_torch.ops import decimal as D
+
+    t_start = time.perf_counter()
+    n = tbl.num_rows
+    x = df["l_extendedprice"].to_numpy().astype(np.float64) * 100.0
+    pu = np.where(x >= 0, np.floor(x + 0.5), np.ceil(x - 0.5)).astype(np.int64)
+    disc_np = np.random.default_rng(15).integers(0, 11, n)
+    net_np = pu * (100 - disc_np)
+    times = {}
+    price, times["from_floats"] = synced(lambda: D.from_floats(tbl["l_extendedprice"], -2))
+    disc = D.from_integers(Column.from_numpy(disc_np), -2)
+    one = D.from_integers(Column.from_scalar(1, n), 0)
+    net, times["price * (1 - disc)"] = synced(
+        lambda: D.binary_op(price, D.binary_op(one, disc, "sub"), "mul"))
+    _exact("from_floats", price.data[:n], pu)
+    if net.dtype.param != -4:
+        raise AssertionError(f"price * (1 - disc) has scale {net.dtype.param}")
+    _exact("price * (1 - disc)", net.data[:n], net_np)
+    total, times["sum"] = synced(lambda: int(net.data[:n].sum()))
+    if total != int(net_np.sum()):
+        raise AssertionError(f"decimal sum {total}, numpy {int(net_np.sum())}")
+    a = np.abs(net_np)
+    q, r = a // 100, a % 100
+    even = np.where(net_np < 0, -1, 1) * (q + ((2 * r > 100) | ((2 * r == 100) & (q % 2 == 1))))
+    away = np.where(net_np < 0, -1, 1) * ((a + 50) // 100)
+    rounded, times["round_decimal(2, half_even)"] = synced(
+        lambda: D.round_decimal(net, 2, "half_even"))
+    _exact("round_decimal", rounded.data[:n], even)
+    resc, times["rescale(-2)"] = synced(lambda: D.rescale(net, -2))
+    _exact("rescale", resc.data[:n], away)
+    gt, times["price > rescaled"] = synced(lambda: D.binary_op(price, resc, "gt"))
+    _exact("compare", gt.data[:n], pu > away)
+    strs = D.to_strings(price.slice(0, 1000)).to_numpy()
+    if list(strs) != [f"{u // 100}.{u % 100:02d}" for u in pu[:1000].tolist()]:
+        raise AssertionError("to_strings differs from the unscaled values' spelling")
+    log(f"decimal: [{gpu}] {n} rows: price from_floats(-2), l_discount 0..10 at -2, "
+        f"price * (1 - disc) at -4 with its sum {total} exact against numpy int64; "
+        f"round, rescale and compare exact; " + ", ".join(
+            f"{k_} {v * 1e3:.2f} ms" for k_, v in times.items())
+        + " (host clock, synchronized, first call)")
+
+    t = Table({"l_discount": disc, "l_extendedprice": tbl["l_extendedprice"]})
+    aggs = [AggSpec("l_extendedprice", "sum", "s"), AggSpec("", "size", "n")]
+    k.groupby_sum_count.launches = 0
+    out, g_s = synced(lambda: groupby_aggregate(t, ["l_discount"], aggs))
+    launches = k.groupby_sum_count.launches
+    if launches < 1:
+        raise AssertionError("groupby(l_discount) did not take the one-hot lane")
+    cnt = np.bincount(disc_np, minlength=11)
+    _exact("groupby keys", out["l_discount"].data[:11], np.arange(11, dtype=np.int64))
+    np.testing.assert_array_equal(out["n"].to_numpy(), cnt)
+    np.testing.assert_allclose(out["s"].to_numpy(), np.bincount(
+        disc_np, weights=df["l_extendedprice"].to_numpy().astype(np.float64)), rtol=1e-5)
+    _, g_warm = synced(lambda: groupby_aggregate(t, ["l_discount"], aggs))
+    log(f"decimal: [{gpu}] groupby(l_discount, a decimal64 key).agg(sum, size) of the "
+        f"f32 price: {out.num_rows} groups on the one-hot lane (launches {launches}), "
+        f"{g_s * 1e3:.2f} ms first, {g_warm * 1e3:.2f} ms warm (host clock, "
+        f"synchronized); keys and sizes exact, sums rtol 1e-5; {time.perf_counter() - t_start:.1f} "
+        f"s since the decimal64 data was made, numpy oracles included")
+    ACCEL["onehot_launches"] += launches
+    del t, out, rounded, resc, gt
+    decimal128_ops(gpu, net, net_np, price, pu, disc, disc_np)
+    _accel_done(t_start)
+
+
+def decimal128_ops(gpu: str, net, net_np, price, pu, disc, disc_np) -> None:
+    """Decimal128 on the first DEC128_ROWS rows: from_decimal64 of the
+    product less 50,000 (signs mixed), mul by the price (scale -6, exact
+    against int64), its square (past 2^64: the low limb against numpy's
+    wrapping int64 product, every limb against Python ints on DEC_SAMPLE
+    rows), rescale to -6 and compare, and the order of order_operands
+    through multisort_perm against a stable numpy argsort; then division on
+    the host of DEC_DIV_ROWS rows by l_discount (zeros give nulls) against
+    Python's decimal."""
+    import decimal as pydec
+
+    import torch
+
+    from cudf_tpu_torch.ops import decimal as D
+    from cudf_tpu_torch.ops import decimal128 as D128
+    from cudf_tpu_torch.ops.sortprim import multisort_perm
+
+    t_start = time.perf_counter()
+    m = DEC128_ROWS
+    times = {}
+    a = D.binary_op(net.slice(0, m), 50_000, "sub")
+    a_np = net_np[:m] - 50_000 * 10 ** 4
+    A = D128.Decimal128Column.from_decimal64(a)
+    B = D128.Decimal128Column.from_decimal64(price.slice(0, m))
+    prod, times["mul"] = synced(lambda: D128.binary_op(A, B, "mul"))
+    p_np = a_np * pu[:m]
+    _exact("decimal128 mul, low limb", prod.lo[:m], p_np)
+    _exact("decimal128 mul, high limb", prod.hi[:m], np.where(p_np < 0, -1, 0))
+    sq, times["mul (past 2^64)"] = synced(lambda: D128.binary_op(prod, prod, "mul"))
+    with np.errstate(over="ignore"):
+        _exact("decimal128 square, low limb", sq.lo[:m], p_np * p_np)
+    rs, times["rescale(-6)"] = synced(lambda: D128.rescale(sq, -6))
+    s = DEC_SAMPLE
+    pys = [int(v) for v in p_np[:s].tolist()]
+    hi, lo = sq.hi[:s].cpu().numpy().tolist(), sq.lo[:s].cpu().numpy().view(np.uint64).tolist()
+    if any((h << 64) | l != v * v for h, l, v in zip(hi, lo, pys)):
+        raise AssertionError("decimal128 square differs from Python ints")
+    hi, lo = rs.hi[:s].cpu().numpy().tolist(), rs.lo[:s].cpu().numpy().view(np.uint64).tolist()
+    if any((h << 64) | l != (v * v + 500_000) // 10 ** 6 for h, l, v in zip(hi, lo, pys)):
+        raise AssertionError("decimal128 rescale differs from Python ints")
+    gt, times["compare"] = synced(lambda: D128.binary_op(prod, A, "gt"))
+    _exact("decimal128 compare", gt.data[:m], p_np > a_np * 100)
+    perm, times["multisort_perm(order_operands)"] = synced(
+        lambda: multisort_perm(D128.order_operands(sq)))
+    _exact("decimal128 sort", perm[perm < m], np.argsort(np.abs(p_np), kind="stable"))
+    log(f"decimal128: [{gpu}] {m} rows: mul exact against int64, the square past 2^64 "
+        f"(low limb exact against numpy, every limb against Python ints on {s} rows), "
+        f"rescale and compare exact, the sort by order_operands equal to numpy's stable "
+        f"argsort; " + ", ".join(f"{k_} {v * 1e3:.2f} ms" for k_, v in times.items())
+        + " (host clock, synchronized, first call)")
+    del sq, rs, gt, perm
+
+    r = DEC_DIV_ROWS
+    num = D128.Decimal128Column(prod.hi[:r], prod.lo[:r], prod.scale, None, r)
+    den = D128.Decimal128Column.from_decimal64(disc.slice(0, r))
+    quo, div_s = synced(lambda: D128.binary_op(num, den, "div"))
+    got = quo.to_python()
+    with pydec.localcontext() as ctx:
+        ctx.prec = 60
+        for x, y, g in zip(p_np[:r].tolist(), disc_np[:r].tolist(), got):
+            want = None if y == 0 else int((pydec.Decimal(x) / pydec.Decimal(y))
+                                           .to_integral_value(pydec.ROUND_DOWN))
+            if g != want:
+                raise AssertionError(f"decimal128 {x} / {y}: {g}, Python's decimal {want}")
+    log(f"decimal128: [{gpu}] division on the host, {r} rows by l_discount at scale "
+        f"{quo.scale} ({int((disc_np[:r] == 0).sum())} zeros give nulls): {div_s:.2f} s "
+        f"(host clock), equal to Python's decimal; decimal128 {time.perf_counter() - t_start:.1f} "
+        f"s with the checks")
+    torch.cuda.empty_cache()
+
+
+def decimal_join(gpu: str, li, filtered, want) -> None:
+    """Phase 5's join with both keys as decimal64 (scale -2): the hash-table
+    lane with the probe kernel (ordered, so the filtered orders stay the
+    build side), equal to the oracle row for row."""
+    from cudf_tpu_torch import Table, join
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.ops import decimal as D
+
+    t_start = time.perf_counter()
+    ld = Table({"l_orderkey": D.from_integers(li["l_orderkey"], -2),
+                "l_extendedprice": li["l_extendedprice"]})
+    rd = Table({c: (D.from_integers(filtered[c], -2) if c == "o_orderkey" else filtered[c])
+                for c in filtered.names})
+    ht.probe_table.launches = 0
+    out, first_s = synced(lambda: join(ld, rd, ["l_orderkey"], ["o_orderkey"], "inner"))
+    launches = ht.probe_table.launches
+    if launches < 1:
+        raise AssertionError("the join on decimal64 keys did not launch the probe kernel")
+    if out["l_orderkey"].dtype.param != -2:
+        raise AssertionError(f"joined key dtype {out['l_orderkey'].dtype}")
+    assert_rows(_columns(out, JOIN_COLS), want, "decimal64 join", False)
+    _, warm_s = synced(lambda: join(ld, rd, ["l_orderkey"], ["o_orderkey"], "inner"))
+    log(f"decimal: [{gpu}] join on decimal64 keys {li.num_rows} x {filtered.num_rows} -> "
+        f"{out.num_rows} rows {first_s * 1e3:.2f} ms first, {warm_s * 1e3:.2f} ms warm "
+        f"(host clock, synchronized); probe launches {launches}; equal to the oracle; "
+        f"{time.perf_counter() - t_start:.1f} s with the checks")
+    ACCEL["probe_launches"] += launches
+    _accel_done(t_start)
+
+
 def main() -> int:
     import torch
 
@@ -2704,9 +3228,14 @@ def main() -> int:
     build(gpu)
     check = launch_check(gpu)
     t0 = time.perf_counter()
+    warm = cudf_tpu_torch.prewarm(ROWS)  # in a thread, beside the data's generation
     df = lineitem(ROWS, seed=0)
     log(f"data: [{gpu}] {ROWS} lineitem rows generated in "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
+    warm.join()
+    log(f"prewarm: [{gpu}] cudf_tpu_torch.prewarm({ROWS}) in a thread: the kernels built "
+        f"and the sort lane and scans warmed at 2^26 and 2^27 rows, joined "
+        f"{time.perf_counter() - t0:.1f} s after its start (host clock)")
     n_active = int(df[KEYS].notna().all(axis=1).sum())
     from cudf_tpu_torch.utils.padding import bucket_capacity
 
@@ -2716,8 +3245,10 @@ def main() -> int:
     nested_sketches(gpu, tbl, df)
     nested_pack(gpu, tbl)
     nested_hashes(gpu, df)
+    decimal_ops(gpu, tbl, df)
     frame, onehot["frame_launches"], frame_s = frame_readme(gpu, df)
     frame_s += frame_series(gpu, df, frame)
+    accel_readme(gpu, df, frame)
     del frame
     sort_lane(gpu, tbl, df)
     nested_collect(gpu, df)
@@ -2735,6 +3266,8 @@ def main() -> int:
     li, filtered, probe_launches = join_path(gpu, df, od, want, match)
     merge_launches, merge_s = frame_merge(gpu, li, filtered, want)
     frame_s += merge_s
+    accel_merge(gpu, df, od, want)
+    decimal_join(gpu, li, filtered, want)
     nested_bloom(gpu, li, filtered, match)
     t1 = time.perf_counter()
     ooc_join_launches, join_s = ooc_join(gpu, li, filtered, want, ooc_budget)
@@ -2764,8 +3297,11 @@ def main() -> int:
     t6 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
         probe["io_launches"], scan_s = io_phase(gpu, host, q3_out, tmp)
+        accel_runner(gpu, tmp)
+    prewarm_first_call(gpu)
     frame_s += scan_s
     del host
+    accel_battery(gpu)
     log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {t5 - t4b - tpch_ooc_s:.1f} s, "
         f"strings {t6 - t5:.1f} s, io {time.perf_counter() - t6:.1f} s (host clock, data "
         f"and oracles included)")
@@ -2784,6 +3320,14 @@ def main() -> int:
         f"strings, S3 and avro); one-hot launches {NESTED['onehot_launches']} (the cut "
         f"groupbys), probe launches {NESTED['probe_launches']} (mixed_join and the token "
         f"merge)")
+    onehot["accel_launches"] = ACCEL["onehot_launches"]
+    probe["accel_launches"] = ACCEL["probe_launches"]
+    log(f"phases: [{gpu}] accelerator and decimals {ACCEL['seconds']:.1f} s (host clock, "
+        f"data, oracles and checks included: the quick start and the merge through the "
+        f"accelerator, the runner, the battery, the decimal64 and decimal128 ops, their "
+        f"groupby and join); one-hot launches {ACCEL['onehot_launches']} (the quick start "
+        f"and groupby(l_discount)), probe launches {ACCEL['probe_launches']} (P.merge and "
+        f"the decimal64 join)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

@@ -33,13 +33,18 @@ ops, conditional and mixed joins (``ops/list_ops.py``, ``ops/join.py``),
 t-digest and HLL sketches, bloom filters, md5/sha/xxhash row hashes and
 pack (``ops/tdigest.py``, ``ops/bloom.py``, ``ops/crypto_hash.py``,
 ``ops/pack.py``), avro and ``s3://`` sources (``io/avro.py``,
-``io/s3.py``), reached by module as in the reference.
+``io/s3.py``), decimal32/64/128 columns (``ops/decimal.py``,
+``ops/decimal128.py``), and the pandas accelerator (``pandas_accel.py``,
+``python -m cudf_tpu_torch.pandas``) with the options registry, tracing
+and prewarm (``utils/options.py``, ``utils/tracing.py``,
+``utils/prewarm.py``), reached by module as in the reference.
 
 The top level is the reference's: ``read_parquet``, ``read_csv``,
 ``read_json`` and ``read_orc`` return a ``DataFrame`` (``io.read_*``
 return a ``Table``), ``from_pandas`` takes a pandas DataFrame or Series,
 and ``concat`` joins frames or Series. Each takes ``device=``.
 """
+from .utils import real_pandas as _real_pandas  # noqa: F401  (real pandas, before any install)
 from . import io
 from .core import dtypes, interop  # noqa: F401
 from .core.column import Column  # noqa: F401
@@ -71,6 +76,15 @@ def read_orc(path, columns=None, device=None) -> DataFrame:
     return DataFrame._from_table(io.read_orc(path, columns, device=device))
 
 
+def prewarm(n_rows, background: bool = True, device=None):
+    """Build the CUDA kernels and warm the sort and scans for the capacity
+    buckets of ``n_rows`` (``utils/prewarm.py``); a background thread by
+    default, whose ``join`` raises what the warm-up raised."""
+    from .utils.prewarm import prewarm as _pw
+
+    return _pw(n_rows, background, device=device)
+
+
 def from_pandas(obj, device=None):
     """A pandas DataFrame as a DataFrame, anything else as a Series."""
     from .utils.real_pandas import pd
@@ -83,4 +97,4 @@ def from_pandas(obj, device=None):
 __all__ = ["Column", "Table", "DataFrame", "Series", "concat", "from_pandas",
            "AggSpec", "groupby_aggregate", "drop_nulls", "apply_boolean_mask",
            "distinct", "binary_op", "join", "cross_join", "dtypes", "interop", "io",
-           "read_parquet", "read_csv", "read_json", "read_orc"]
+           "read_parquet", "read_csv", "read_json", "read_orc", "prewarm"]

@@ -4,7 +4,8 @@ Counterpart of ``cudf_tpu/core/column.py`` (numeric, bool,
 dictionary-encoded string and categorical columns, ``core/categorical.py``,
 and list-valued host cells in an object dictionary; list, struct and
 interval columns are ``core/lists.py``, ``core/structs.py`` and
-``core/interval.py``; decimal columns are not ported yet). Invariants
+``core/interval.py``; decimal columns are int columns whose dtype carries
+a scale, ``ops/decimal.py``, and decimal128 ``ops/decimal128.py``). Invariants
 kept from the reference:
 
   - data.shape == (capacity,), capacity == bucket_capacity(length) normally
@@ -23,7 +24,6 @@ missing — the CPU is used only when the caller asks for it.
 """
 from __future__ import annotations
 
-import decimal
 import warnings
 from typing import Optional
 
@@ -33,10 +33,6 @@ import torch
 from . import dtypes
 from .dtypes import DType, Kind
 from ..utils.padding import bucket_capacity
-
-
-DECIMALS_NOT_PORTED = ("decimal columns are not ported yet (ROADMAP queue 1, "
-                       "remainders: ops/decimal.py, ops/decimal128.py)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -147,8 +143,6 @@ class Column:
         if arr.dtype.kind == "O" and any(
                 isinstance(x, (list, tuple, np.ndarray)) for x in arr[:64]):
             return cls._from_host_objects(arr, validity, dev)
-        if arr.dtype.kind == "O" and any(isinstance(x, decimal.Decimal) for x in arr[:64]):
-            raise NotImplementedError(DECIMALS_NOT_PORTED)
         if arr.dtype.kind in ("O", "U", "S"):
             return cls._from_host_strings(arr, validity, dev)
         dt = dtypes.from_numpy(arr.dtype)
@@ -200,7 +194,7 @@ class Column:
 
     @classmethod
     def _from_host_strings(cls, arr: np.ndarray, validity, dev) -> "Column":
-        import pandas as pd
+        from ..utils.real_pandas import pd
 
         n = len(arr)
         # a null is None or a float NaN; pd.isna finds the candidates in one
@@ -257,8 +251,6 @@ class Column:
             arr = arr.combine_chunks()
         if pa.types.is_dictionary(arr.type):
             arr = arr.cast(arr.type.value_type)
-        if pa.types.is_decimal(arr.type):
-            raise NotImplementedError(DECIMALS_NOT_PORTED)
         validity = np.asarray(arr.is_valid()) if arr.null_count else None
         if pa.types.is_string(arr.type) or pa.types.is_large_string(arr.type):
             enc = pc.dictionary_encode(arr.fill_null("") if arr.null_count else arr)
@@ -374,7 +366,7 @@ class Column:
         return pa.array(data, mask=mask)
 
     def to_pandas(self, name=None):
-        import pandas as pd
+        from ..utils.real_pandas import pd
 
         from .categorical import is_categorical, to_pandas_categorical
 

@@ -114,6 +114,16 @@ def duration(unit: str = "ns") -> DType:
     return DType(Kind.DURATION, 64, unit)
 
 
+def decimal64(scale: int = 0) -> DType:
+    """fixed_point decimal64 (int64 unscaled + power-of-ten scale)."""
+    return DType(Kind.DECIMAL, 64, scale)
+
+
+def decimal32(scale: int = 0) -> DType:
+    """fixed_point decimal32 (int32 unscaled + power-of-ten scale)."""
+    return DType(Kind.DECIMAL, 32, scale)
+
+
 _NP_MAP = {
     np.dtype("bool"): bool_,
     np.dtype("int8"): int8,

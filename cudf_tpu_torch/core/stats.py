@@ -59,7 +59,8 @@ class ColStats:
 
 _STATS_KINDS = (Kind.BOOL, Kind.INT, Kind.UINT, Kind.FLOAT, Kind.TIMESTAMP,
                 Kind.DURATION, Kind.DECIMAL)
-_EXACT64_KINDS = (Kind.INT, Kind.UINT, Kind.TIMESTAMP, Kind.DURATION)
+# decimal64 too, so that a decimal key takes the lanes an int64 key takes
+_EXACT64_KINDS = (Kind.INT, Kind.UINT, Kind.TIMESTAMP, Kind.DURATION, Kind.DECIMAL)
 _I64_MIN = -(1 << 63)
 
 

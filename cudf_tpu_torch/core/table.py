@@ -136,7 +136,7 @@ class Table:
         """Ingest a pandas frame. Floats keep NaN as a value (cudf
         semantics); pandas nullable extension dtypes become a validity
         mask; object/string columns become sorted-dictionary codes."""
-        import pandas as pd
+        from ..utils.real_pandas import pd
 
         dev = resolve_device(device)
         cols = {}

@@ -30,6 +30,7 @@ from ..core import dtypes
 from ..core.column import Column, resolve_device
 from ..core.table import Deferred, Table
 from ..ops import copying, join as join_ops, sorting, stream_compaction as sc, unaryop
+from ..utils.tracing import trace_op
 from .series import Series, _column_from_values, take_indices
 
 
@@ -365,6 +366,7 @@ class DataFrame:
         e = eval(expr_str, {"__builtins__": {}}, env)  # noqa: S307
         return Series(column=E.evaluate(e, self._tbl), name=None)
 
+    @trace_op
     def merge(self, right, on=None, left_on=None, right_on=None, how="inner",
               suffixes=("_x", "_y")):
         """pandas merge through ``ops/join.py`` (the hash-table lane with

@@ -30,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -52,8 +53,21 @@ PROTOTYPES = {
         "onehot_groupby_sum_count": ([_P] * 5 + [_LL, _I, _I, _I, _I, _P], _I)},
 }
 
+
+class KernelError(RuntimeError):
+    """A kernel that failed to build or to launch."""
+
+
 _LIBS: dict = {}
 _ENTRIES: dict = {}  # (source, entry point) -> bound ctypes function
+# one build at a time in a process: a background prewarm and a first launch
+# would otherwise both compile a source into the same temporary file
+_BUILD_LOCK = threading.Lock()
+
+
+def sources() -> list:
+    """The names of every CUDA source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -62,9 +76,10 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if nvcc is None or not os.path.exists(nvcc):
+        raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return nvcc
 
 
 def _target(name: str) -> Path:
@@ -77,6 +92,11 @@ def _target(name: str) -> Path:
 def build_all(names) -> None:
     """Compile the named sources not built yet, one nvcc process per source,
     all started together."""
+    with _BUILD_LOCK:
+        _build(names)
+
+
+def _build(names) -> None:
     todo = [(n, _target(n)) for n in names if not _target(n).exists()]
     if not todo:
         return
@@ -96,7 +116,7 @@ def build_all(names) -> None:
             continue
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -105,9 +125,13 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn_name, (argtypes, restype) in PROTOTYPES.get(name, {}).items():
-            fn = getattr(lib, fn_name)
+        try:
+            lib = ctypes.CDLL(str(_target(name)))
+            fns = {fn_name: (getattr(lib, fn_name), proto)
+                   for fn_name, proto in PROTOTYPES.get(name, {}).items()}
+        except (OSError, AttributeError) as e:  # a library that cannot load, a missing symbol
+            raise KernelError(f"cannot load the {name} kernel library: {e}") from e
+        for fn_name, (fn, (argtypes, restype)) in fns.items():
             fn.argtypes, fn.restype = argtypes, restype
             _ENTRIES[(name, fn_name)] = fn
         _LIBS[name] = lib

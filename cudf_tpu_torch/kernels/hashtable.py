@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import entry, on_device, stream_of
+from . import KernelError, entry, on_device, stream_of
 
 MAX_PROBE = 16
 EMPTY = -2147483648  # vacant-slot payload sentinel (INT32_MIN)
@@ -172,7 +172,7 @@ def probe_table(tk1: torch.Tensor, tk2: torch.Tensor, payload: torch.Tensor,
         err = fn(slots.data_ptr(), q1.data_ptr(), q2.data_ptr(), out.data_ptr(), n,
                  tk1.shape[0], stream_of(q1.device))
     if err != 0:
-        raise RuntimeError(f"hashtable_probe launch failed: CUDA error {err}")
+        raise KernelError(f"hashtable_probe launch failed: CUDA error {err}")
     probe_table.launches += 1
     return out
 

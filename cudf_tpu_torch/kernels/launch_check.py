@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from . import entry, on_device, stream_of
+from . import KernelError, entry, on_device, stream_of
 
 
 def double_plain(x: torch.Tensor) -> torch.Tensor:
@@ -34,7 +34,7 @@ def double(x: torch.Tensor) -> torch.Tensor:
     with on_device(dev):
         err = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(dev))
     if err != 0:
-        raise RuntimeError(f"launch_check_double launch failed: CUDA error {err}")
+        raise KernelError(f"launch_check_double launch failed: CUDA error {err}")
     double.launches += 1
     return out
 

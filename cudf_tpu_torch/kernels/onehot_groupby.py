@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from . import entry, on_device, stream_of
+from . import KernelError, entry, on_device, stream_of
 
 MAX_GROUPS = 2048            # the lane's bound: 2^tbits with tbits <= 11
 REG_SLOTS = 32               # register tier: K·(V+1) accumulators a thread holds
@@ -105,7 +105,7 @@ def groupby_sum_count(gid: torch.Tensor, vals: torch.Tensor, weight: torch.Tenso
                      partials.data_ptr(), out.data_ptr(), n, V, n_groups, warps,
                      blocks.value, stream_of(gid.device))
     if err != 0:
-        raise RuntimeError(f"onehot_groupby_sum_count launch failed: CUDA error {err}")
+        raise KernelError(f"onehot_groupby_sum_count launch failed: CUDA error {err}")
     groupby_sum_count.launches += 1
     return out
 

@@ -30,6 +30,7 @@ from ..core import dtypes
 from ..core.column import Column
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
+from ..utils.tracing import trace_op
 from . import fastgroup, rowcodes
 from .copying import gather
 from .sortprim import _posbits, multisort_perm, segment_reduce, tiled_cumsum
@@ -58,6 +59,7 @@ def _onehot_plan(tbl: Table, keys: Sequence[str], aggs):
     return (plan, tbits) if tbits <= fastgroup.ONEHOT_MAX_BITS else None
 
 
+@trace_op
 def groupby_aggregate(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
                       dropna_keys: bool = True) -> Table:
     """Grouped aggregation; output rows are in sorted key order."""

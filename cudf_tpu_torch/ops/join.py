@@ -47,6 +47,7 @@ from ..core import dtypes
 from ..core.column import Column
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
+from ..utils.tracing import trace_op
 from . import rowcodes
 from .copying import concatenate_tables, gather
 from .sortprim import multisort_perm, tiled_cumsum
@@ -191,6 +192,7 @@ def _expand(counts, lb, r_perm, eff, n_out: int, out_cap: int):
     return left_idx, right_idx
 
 
+@trace_op
 def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[str],
          how: str = "inner", nulls_equal: bool = False,
          suffixes: Tuple[str, str] = ("_x", "_y"), ordered: bool = True) -> Table:

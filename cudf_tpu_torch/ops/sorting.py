@@ -34,6 +34,7 @@ import torch
 from ..core import dtypes
 from ..core.column import Column
 from ..core.table import Table
+from ..utils.tracing import trace_op
 from . import rowcodes
 from .copying import gather, gather_table
 from .sortprim import multisort_perm, tiled_cumsum
@@ -82,6 +83,7 @@ def sorted_order(keys: Sequence[Column],
     return multisort_perm(_order_operands(keys, desc, nl))
 
 
+@trace_op
 def sort_by_key(tbl: Table, keys: Sequence[str],
                 descending: Union[bool, Sequence[bool]] = False,
                 nulls_last: Union[bool, Sequence[bool]] = True) -> Table:

@@ -1,10 +1,13 @@
-"""The genuine pandas module (counterpart of ``cudf_tpu/utils/real_pandas.py``).
+"""The genuine pandas module, never the accelerator's proxy.
 
-The reference keeps this alias so that its internals never construct
-through its pandas accelerator proxy. The port has no proxy yet, so the
-alias is plain pandas; modules import ``pd`` from here so that the proxy,
-once ported, has one place to unwrap.
+Counterpart of ``cudf_tpu/utils/real_pandas.py``. The port's internals
+must not construct through the proxy that ``pandas_accel.install()`` puts
+in ``sys.modules["pandas"]`` (that would recurse proxy -> fast -> proxy).
+``cudf_tpu_torch/__init__.py`` imports this module first, before any
+install can run; if the port's proxy is installed already, it is unwrapped.
 """
-import pandas as pd
+import pandas as _maybe_proxy
+
+pd = getattr(_maybe_proxy, "_cudf_real_pandas", _maybe_proxy)
 
 pandas = pd

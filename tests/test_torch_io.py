@@ -348,8 +348,9 @@ def test_readers_default_to_cuda(tmp_path):
 
 def test_unported_io_names_its_roadmap_item(tmp_path):
     """The avro format and s3:// sources, which raised until the
-    nested-types slice, now run; a decimal column still raises, naming
-    its ROADMAP item."""
+    nested-types slice, now run; so does an arrow decimal column, which
+    raised until the decimals' slice and ingests as the reference's does
+    (a string column)."""
     import decimal
 
     import pyarrow as pa
@@ -364,6 +365,6 @@ def test_unported_io_names_its_roadmap_item(tmp_path):
     assert TIO.scan("avro", [a], device="cpu")["a"].to_numpy().tolist() == [1]
     assert isinstance(Datasource.open("s3://bucket/x.parquet"), S3Datasource)
     dec = pa.array([decimal.Decimal("1.50"), None], type=pa.decimal128(10, 2))
-    with pytest.raises(NotImplementedError, match="queue 1, remainders"):
-        tt.Column.from_arrow(dec, device="cpu")
+    got, ref = tt.Column.from_arrow(dec, device="cpu"), ct.Column.from_arrow(dec)
+    assert got.to_numpy().tolist() == ref.to_numpy().tolist() == ["1.50", None]
     assert TIO.parquet_metadata(p).num_rows == RIO.parquet_metadata(p).num_rows == 1

@@ -12,6 +12,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
+import jax
+
 import cudf_tpu as ct
 from cudf_tpu.core import lists as RL
 from cudf_tpu.core.structs import StructColumn as RStruct
@@ -57,6 +59,16 @@ def _rows(kind, n, seed):
         else:
             out.append([str(v) for v in rng.choice(["a", "bb", "c", "dd", "é"], k)])
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_the_reference_traces():
+    """The reference's jitted list ops return string columns whose
+    dictionary is the one of their first trace (pinned below), so traces
+    made here would decode a later module's results with this module's
+    dictionaries: they are dropped when the module ends."""
+    yield
+    jax.clear_caches()
 
 
 def _pair(rows):
@@ -288,6 +300,27 @@ def test_set_ops_on_string_children_with_two_dictionaries():
         got = getattr(TO, f"list_{op}")(ta, tb).to_pylist()
         assert got == getattr(RO, f"list_{op}")(ra, rb).to_pylist()
     assert TO.list_union(ta, tb).to_pylist() == [["x", "y", "z"], ["p", "q"], ["k"]]
+
+
+def test_reference_set_op_keeps_the_dictionary_of_its_first_trace():
+    """Pinned: the reference's jitted set op returns a column whose
+    dictionary rides in the trace's static aux, and ``_DictBox`` compares
+    equal for every dictionary (cudf_tpu/core/column.py:54-72). A second
+    call whose shapes fall in the same buckets reuses the first trace and
+    decodes its codes with the first call's dictionary. The port equals
+    the sets."""
+    want = [["x", "y", "z"], ["p", "q"]]
+    jax.clear_caches()
+    try:
+        RO.list_union(_pair([["x", "y"], ["p"], []])[0],
+                      _pair([["y", "z"], ["q", "p"], ["k"]])[0])
+        (ra, ta), (rb, tb) = _pair([["x", "y"], ["p"]]), _pair([["y", "z"], ["q"]])
+        assert RO.list_union(ra, rb).to_pylist() == [["q", "x", "y"], ["k", "p"]]
+        assert TO.list_union(ta, tb).to_pylist() == want
+        jax.clear_caches()
+        assert RO.list_union(ra, rb).to_pylist() == want  # a fresh trace decodes right
+    finally:
+        jax.clear_caches()
 
 
 # ---------------------------------------------------------------- structs
