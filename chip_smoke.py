@@ -150,6 +150,29 @@ Phases (each prints a line; any failure raises and exits nonzero):
                fresh process with and without prewarm; last, benchmarks/pandas_compat.py's
                49 cases through the accelerator (pass rate 1.00), and
                neither jax nor cudf_tpu in sys.modules.
+ 16. distributed — parallel/spmd.py over make_mesh(8): 8 shards, the
+               reference's 8-device count, round-robin over the visible
+               cards (all on cuda:0 on one H100). Beside the phases whose
+               data it reuses: after phase 3, dist_groupby of the README
+               query over the 60M rows (null keys form groups; the groups
+               with both keys equal phase 3's answer; one-hot launches for
+               every shard that holds rows); after phase 5, the Q3
+               dist_join of the sharded 60M lineitem rows and filtered
+               orders (equal to the oracle as a multiset; a probe launch a
+               shard); after phase 8, dist_sort_values on [k1, k2
+               descending] (equal to sort_by_key row for row); in phase 9,
+               broadcast_join of the sharded SF10 lineitem with supplier on
+               l_suppkey and with a 3-row table on the string
+               l_returnflag (equal to the in-memory join row for row),
+               execute_spmd of q1/q3/q5/q6 (equal to IR.execute) and
+               execute_streaming of q1 in target_partition_rows chunks;
+               after phase 11, two worker processes sharing the card
+               (TCPStore on a free port, MP_TIMEOUT_S each), each running
+               execute_multiproc of q1 and q3 at SF1 against IR.execute and
+               a host_exchange of lineitem halves; dist_groupby across 2
+               ranks under NCCL only with two or more cards. Each op prints
+               shards, rows a shard, bytes exchanged, exchange against
+               shard-local time, launches and DIST_FALLBACK_COUNTS (empty).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -1422,6 +1445,7 @@ def tpch_phase(gpu: str):
             + device_breakdown(lambda: IR.execute(plan)))
     datetime_checks(gpu, host["lineitem"], dev["lineitem"])
     nested_joins(gpu, host, dev)
+    dist_tpch(gpu, dev, plans, runs)
     t_ooc = time.perf_counter()
     ooc_groupby(gpu, dev["lineitem"])
     ooc_launches = ooc_tpch(gpu, plans, runs)
@@ -3215,6 +3239,455 @@ def decimal_join(gpu: str, li, filtered, want) -> None:
     _accel_done(t_start)
 
 
+# --------------------------------------------------------------- phase 16
+# The distributed phase runs beside the phases whose data it reuses: the
+# README groupby over 8 shards on phase 3's table, the Q3 shuffle join on
+# phase 5's tables, the distributed sort on phase 8's table, execute_spmd,
+# the broadcast joins and execute_streaming on phase 9's SF10 tables, and
+# last two processes sharing the card. The mesh is 8 shards, the reference's
+# 8-device count (MULTICHIP_r*.json's n_devices), round-robin over the
+# visible cards: on one H100 all 8 share cuda:0. DIST sums its seconds and
+# the kernels' launches.
+DIST = {"seconds": 0.0, "onehot_launches": 0, "probe_launches": 0}
+DIST_SHARDS = 8
+MP_ROWS = 6_000_000          # the two processes' lineitem: SF1
+MP_TIMEOUT_S = 300           # a worker still running then is killed, and the phase fails
+MP_SCRIPT = """\
+import json, os, sys, time
+import numpy as np, pandas as pd, torch
+import chip_smoke as cs
+from cudf_tpu_torch import Table
+from cudf_tpu_torch.expr import expressions as E, ir as IR
+from cudf_tpu_torch.parallel import multihost
+from cudf_tpu_torch.parallel.multiproc_stream import execute_multiproc
+
+rank, nccl = int(os.environ["CUDF_TPU_PROCESS_ID"]), sys.argv[1] == "nccl"
+if nccl:
+    # one card a rank: the process group runs NCCL and the mesh's exchange
+    # is all_to_all_single between the cards
+    from cudf_tpu_torch.ops.groupby import AggSpec
+    from cudf_tpu_torch.parallel import spmd
+    multihost.initialize()
+    n = multihost.process_count()
+    mesh = multihost.global_mesh(n_devices=n)
+    df = cs.lineitem(int(sys.argv[2]), seed=0)[cs.KEYS + ["l_extendedprice"]]
+    part = df.iloc[rank::n].reset_index(drop=True)
+    st = spmd.ShardedTable.from_process_local([Table.from_pandas(part)], mesh)
+    aggs = [AggSpec("l_extendedprice", "sum", "s"), AggSpec("", "size", "n")]
+    out = spmd.dist_groupby(st, cs.KEYS, aggs).local_tables()[0].to_pandas()
+    srt = spmd.dist_sort_values(st, ["l_extendedprice"], descending=True).local_tables()[0]
+    v = srt["l_extendedprice"].data[: srt.num_rows].cpu().numpy().astype(float)
+    print(json.dumps({"rank": rank, "groups": out.to_dict(orient="list"),
+                      "sort": [len(v), bool((np.diff(v) <= 0).all()),
+                               v[:1].tolist(), v[-1:].tolist()]}), flush=True)
+    sys.exit(0)
+# two ranks on one card: the group (gloo) only coordinates; the tables stay on
+# the card and partitions cross through multihost.host_exchange
+multihost.initialize(device="cpu")
+host = cs.gen_tables(int(sys.argv[2]))
+dev = {k: Table.from_pandas(v) for k, v in host.items()}
+plans = {q: cs.BUILDERS[q](lambda n: IR.DataFrameScan(dev[n]), E, IR, E.col)
+         for q in ("q1", "q3")}
+res = {"rank": rank}
+for q, plan in plans.items():
+    want = IR.execute(plan).to_pandas()
+    got = execute_multiproc(plan, collect="global").to_pandas()
+    pd.testing.assert_frame_equal(got, want, rtol=1e-9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    execute_multiproc(plan, collect="global")
+    torch.cuda.synchronize()
+    res[q] = {"rows": len(got), "warm_ms": (time.perf_counter() - t0) * 1e3}
+li = dev["lineitem"]
+half = li.num_rows // 2
+sends = [li.slice(0, half), li.slice(half)]
+t0 = time.perf_counter()
+got = multihost.host_exchange(sends, timeout_ms=120_000)
+res["exchange_s"] = time.perf_counter() - t0
+mine = sends[rank]
+for src, t in enumerate(got):
+    if t.num_rows != mine.num_rows or not torch.equal(
+            t["l_orderkey"].data[: t.num_rows], mine["l_orderkey"].data[: t.num_rows]):
+        raise AssertionError(f"host_exchange: rank {src}'s partition differs")
+res["exchange_rows"] = sum(t.num_rows for t in got)
+print(json.dumps(res), flush=True)
+"""
+
+
+def _dist_done(t0: float) -> None:
+    DIST["seconds"] += time.perf_counter() - t0
+
+
+def _dist_mesh():
+    from cudf_tpu_torch.parallel import spmd
+
+    return spmd.make_mesh(DIST_SHARDS)
+
+
+def _dist_shard(tbl, mesh):
+    """``tbl``'s rows in DIST_SHARDS contiguous slices, one a shard."""
+    from cudf_tpu_torch.parallel import spmd
+
+    n = tbl.num_rows
+    step = -(-n // mesh.size)
+    return spmd.ShardedTable.from_tables(
+        [tbl.slice(min(i * step, n), step) for i in range(mesh.size)], mesh)
+
+
+def _dist_line(what: str, lengths, mesh, launches: str) -> str:
+    """Shards, rows a shard, bytes exchanged, exchange against shard-local
+    time (the timed run) and launches of one distributed op."""
+    from cudf_tpu_torch.parallel import spmd
+
+    st = mesh.stats
+    return (f"{what}: {mesh.size} shards, rows a shard {min(lengths)}..{max(lengths)}; "
+            f"{st.exchanges} exchanges moved {st.exchange_bytes} bytes between shards; "
+            f"exchange {st.exchange_s * 1e3:.2f} ms, shard-local ops {st.local_s * 1e3:.2f} ms "
+            f"(synchronized run); {launches}; fallbacks {dict(spmd.DIST_FALLBACK_COUNTS)}")
+
+
+def _dist_run(mesh, fn):
+    """fn() twice: once with the mesh's step timing on (the mesh keeps
+    that run's stats), once warm with it off; returns (result, warm
+    seconds)."""
+    import torch
+
+    mesh.reset_stats()
+    mesh.timing = True
+    torch.cuda.synchronize()
+    out = fn()
+    mesh.timing = False
+    timed = mesh.stats
+    mesh.reset_stats()
+    _, warm_s = synced(fn)
+    mesh.stats = timed
+    return out, warm_s
+
+
+def dist_readme(gpu: str, tbl, readme_out) -> None:
+    """Collective 1: dist_groupby of the README query over phase 3's 60M
+    rows in 8 shards (keys with 1% nulls each: like the reference's shard
+    body, null keys form groups). The groups with both keys equal phase 3's
+    answer (keys and counts exact, sums and means rtol 1e-5, the kernel's
+    f32 partial sums), every row counted; the one-hot kernel launched once
+    for each shard that holds rows."""
+    from cudf_tpu_torch import AggSpec, groupby_aggregate
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.kernels import onehot_groupby as oh
+    from cudf_tpu_torch.parallel import spmd
+
+    t0 = time.perf_counter()
+    mesh = _dist_mesh()
+    log(f"dist: [{gpu}] mesh {mesh}")
+    aggs = [AggSpec("l_extendedprice", "sum", "sum_price"),
+            AggSpec("l_extendedprice", "mean", "avg_price"),
+            AggSpec("l_extendedprice", "count", "count_price"),
+            AggSpec("", "size", "count_order")]
+    st = _dist_shard(tbl, mesh)
+    shuffled, _ = spmd.shuffle_by_key(st, KEYS)
+    lengths = shuffled.lengths
+    holding = sum(n > 0 for n in lengths)
+    del shuffled
+    spmd.reset_dist_fallbacks()
+    oh.groupby_sum_count.launches = 0
+    ht.probe_table.launches = 0
+    out, warm_s = _dist_run(mesh, lambda: spmd.dist_groupby(st, KEYS, aggs))
+    launches = oh.groupby_sum_count.launches // 2
+    if launches < holding:
+        raise AssertionError(f"dist groupby: {launches} one-hot launches a run for "
+                             f"{holding} shards that hold rows")
+    if ht.probe_table.launches:
+        raise AssertionError("dist groupby launched the probe kernel")
+    DIST["onehot_launches"] += launches
+    line = _dist_line("dist groupby (rows after the shuffle)", lengths, mesh,
+                      f"one-hot launches {launches} a run ({holding} shards hold rows)")
+    _, mem_s = synced(lambda: groupby_aggregate(tbl, KEYS, aggs, dropna_keys=False))
+    got = out.concat_to_table().to_pandas()
+    if int(got["count_order"].sum()) != tbl.num_rows:
+        raise AssertionError("dist groupby: the groups do not count every row")
+    got = got.dropna(subset=KEYS).sort_values(KEYS).reset_index(drop=True)
+    want = readme_out.sort_values(KEYS).reset_index(drop=True)
+    np.testing.assert_array_equal(got[KEYS].to_numpy(np.int64), want[KEYS].to_numpy(np.int64))
+    for c in ("count_price", "count_order"):
+        np.testing.assert_array_equal(got[c].to_numpy(), want[c].to_numpy())
+    for c in ("sum_price", "avg_price"):
+        np.testing.assert_allclose(got[c], want[c], rtol=1e-5)
+    if spmd.DIST_FALLBACK_COUNTS:
+        raise AssertionError(f"dist fallbacks: {spmd.DIST_FALLBACK_COUNTS}")
+    log(f"dist groupby: [{gpu}] " + line)
+    log(f"dist groupby: [{gpu}] {tbl.num_rows} rows -> {len(got)} groups with both keys "
+        f"equal to phase 3's answer (keys and counts exact, sum/mean rtol 1e-5); warm "
+        f"{warm_s * 1e3:.2f} ms over {mesh.size} shards against one in-memory "
+        f"groupby_aggregate {mem_s * 1e3:.2f} ms (host clock, synchronized)")
+    _dist_done(t0)
+
+
+def dist_q3(gpu: str, li, filtered, want) -> None:
+    """Collective 2: dist_join of Q3, both sides sharded: phase 5's 60M
+    lineitem rows [l_orderkey, l_extendedprice] with the 7,289,153 filtered
+    orders; every column equal to phase 5's oracle as a multiset, the
+    probe kernel launched once for each shard."""
+    from cudf_tpu_torch import join
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.parallel import spmd
+
+    t0 = time.perf_counter()
+    mesh = _dist_mesh()
+    sl, sr = _dist_shard(li, mesh), _dist_shard(filtered, mesh)
+    before = ht.probe_table.launches
+    out, warm_s = _dist_run(mesh, lambda: spmd.dist_join(sl, sr, ["l_orderkey"],
+                                                         ["o_orderkey"], "inner"))
+    launches = ht.probe_table.launches - before
+    line = _dist_line("dist join (output rows)", out.lengths, mesh, f"probe launches "
+                      f"{launches} in the timed run and the warm one")
+    first = launches // 2
+    if first < sum(n > 0 for n in out.lengths):
+        raise AssertionError(f"dist join: {first} probe launches a run for {mesh.size} shards")
+    DIST["probe_launches"] += launches
+    _, mem_s = synced(lambda: join(li, filtered, ["l_orderkey"], ["o_orderkey"], "inner",
+                                   ordered=False))
+    assert_rows(_columns(out.concat_to_table(), JOIN_COLS), want, "dist join", True)
+    log(f"dist join: [{gpu}] " + line)
+    log(f"dist join: [{gpu}] Q3's {li.num_rows} x {filtered.num_rows} rows -> "
+        f"{sum(out.lengths)} rows equal to the oracle as a multiset, every column exact; "
+        f"warm {warm_s * 1e3:.2f} ms over {mesh.size} shards against one in-memory join "
+        f"{mem_s * 1e3:.2f} ms (host clock, synchronized)")
+    _dist_done(t0)
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal columns (floats by their bits, so NaN equals NaN)."""
+    import torch
+
+    if a.data.dtype.is_floating_point:
+        return torch.equal(a.data.view(torch.int64 if a.data.element_size() == 8
+                                       else torch.int32), b.data.view(
+            torch.int64 if b.data.element_size() == 8 else torch.int32))
+    return torch.equal(a.data, b.data)
+
+
+def dist_sort(gpu: str, sort_tbl) -> None:
+    """Collective 4: dist_sort_values of phase 8's 60M rows on [k1 f64 with
+    2% NaN, k2 f32 descending]; row for row equal to sort_by_key with the
+    same flags (every column's bits)."""
+    from cudf_tpu_torch.ops.sorting import sort_by_key
+    from cudf_tpu_torch.parallel import spmd
+
+    t0 = time.perf_counter()
+    mesh = _dist_mesh()
+    st = _dist_shard(sort_tbl, mesh)
+    flags = [False, True]
+    out, warm_s = _dist_run(mesh, lambda: spmd.dist_sort_values(st, ["k1", "k2"], flags))
+    line = _dist_line("dist sort", out.lengths, mesh, "no kernel of the port on this path")
+    want, mem_s = synced(lambda: sort_by_key(sort_tbl, ["k1", "k2"], flags))
+    got = out.concat_to_table()
+    n = want.num_rows
+    for c in ("k1", "k2", "v"):
+        if got.num_rows != n or not _bits_equal(got[c].slice(0, n), want[c].slice(0, n)):
+            raise AssertionError(f"dist sort: column {c} differs from sort_by_key")
+    log(f"dist sort: [{gpu}] " + line)
+    log(f"dist sort: [{gpu}] {n} rows on [k1, k2 descending] equal to sort_by_key row for "
+        f"row, every column's bits; warm {warm_s * 1e3:.2f} ms over {mesh.size} shards "
+        f"against one in-memory sort_by_key {mem_s * 1e3:.2f} ms (host clock, synchronized)")
+    _dist_done(t0)
+
+
+def _by_rid(tbl, names):
+    """``tbl``'s ``names`` columns ordered by its row-id column."""
+    import torch
+
+    from cudf_tpu_torch.ops.copying import gather_table
+
+    n = tbl.num_rows
+    perm = torch.sort(tbl["rid"].data[:n], stable=True).indices
+    return gather_table(tbl.select(names), perm, n)
+
+
+def dist_tpch(gpu: str, dev: dict, plans: dict, runs: dict) -> None:
+    """On phase 9's SF10 tables. Collective 3: broadcast_join of the 60M
+    sharded lineitem rows with the 150,000-row supplier table on l_suppkey,
+    and with a 3-row table on the string l_returnflag (its dictionary not
+    lineitem's), each equal to the in-memory join row for row by a row id;
+    then execute_spmd of q1, q3, q5 and q6 over 8 shards, each equal to
+    IR.execute (keys and order exact, floats rtol 1e-6), and
+    execute_streaming of q1 in target_partition_rows chunks."""
+    from cudf_tpu_torch import Column, Table, join
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.parallel import actor_graph, spmd
+    from cudf_tpu_torch.parallel.plan_executor import execute_spmd
+    from cudf_tpu_torch.utils.options import get_option
+
+    import torch
+
+    t0 = time.perf_counter()
+    mesh = _dist_mesh()
+    li = dev["lineitem"]
+    rid = Column(li["l_suppkey"].dtype, torch.arange(li["l_suppkey"].capacity,
+                                                     device=li["l_suppkey"].device),
+                 None, li.num_rows)
+    base = Table({"rid": rid, **{c: li[c] for c in ("l_suppkey", "l_returnflag",
+                                                    "l_extendedprice")}})
+    st = _dist_shard(base, mesh)
+    flags = Table.from_pandas(pd.DataFrame({"l_returnflag": ["R", "A", "Z"],
+                                            "flag_w": [3.0, 1.0, 9.0]}), device=li.device)
+    for what, small, lo, ro in (("int key", dev["supplier"], "l_suppkey", "s_suppkey"),
+                                ("string key", flags, "l_returnflag", "l_returnflag")):
+        before = ht.probe_table.launches
+        out, warm_s = _dist_run(mesh, lambda: spmd.broadcast_join(st, small, [lo], [ro]))
+        launches = ht.probe_table.launches - before
+        DIST["probe_launches"] += launches
+        line = _dist_line(f"dist broadcast join ({what}; output rows)", out.lengths, mesh,
+                          f"probe launches {launches} (timed and warm runs)")
+        want, mem_s = synced(lambda: join(base, small, [lo], [ro], "inner", ordered=False))
+        got = out.concat_to_table()
+        names = want.names
+        if list(got.names) != names or got.num_rows != want.num_rows:
+            raise AssertionError(f"dist broadcast join ({what}): {got.names} x "
+                                 f"{got.num_rows} against {names} x {want.num_rows}")
+        g, w = _by_rid(got, names), _by_rid(want, names)
+        n = want.num_rows
+        for c in names:
+            if not _bits_equal(g[c].slice(0, n), w[c].slice(0, n)):
+                raise AssertionError(f"dist broadcast join ({what}): column {c} differs")
+        if what == "string key":
+            # equal codes mean equal strings only under one dictionary
+            if list(g["l_returnflag"].dictionary) != list(w["l_returnflag"].dictionary):
+                raise AssertionError("dist broadcast join: the dictionaries differ")
+        log(f"dist broadcast: [{gpu}] " + line)
+        log(f"dist broadcast: [{gpu}] {li.num_rows} x {small.num_rows} rows on the {what} "
+            f"-> {got.num_rows} rows equal to the in-memory join row for row (by row id); "
+            f"warm {warm_s * 1e3:.2f} ms against one in-memory join {mem_s * 1e3:.2f} ms "
+            f"(host clock, synchronized)")
+    del st, base
+    for q, plan in plans.items():
+        before = ht.probe_table.launches
+        mesh.reset_stats()
+        got, first_s = synced(lambda: execute_spmd(plan, mesh).to_pandas())
+        launches = ht.probe_table.launches - before
+        DIST["probe_launches"] += launches
+        _, warm_s = synced(lambda: execute_spmd(plan, mesh))
+        pd.testing.assert_frame_equal(got, runs[q][0], rtol=1e-6)
+        if q in ("q3", "q5") and launches < 1:
+            raise AssertionError(f"execute_spmd {q}: the joins did not launch the probe")
+        log(f"dist execute_spmd {q}: [{gpu}] {len(got)} rows equal to IR.execute's (keys, "
+            f"counts and order exact, rtol 1e-6); first {first_s * 1e3:.2f} ms with "
+            f"to_pandas, warm {warm_s * 1e3:.2f} ms against IR.execute's warm "
+            f"{runs[q][2] * 1e3:.2f} ms (host clock, synchronized); {mesh.size} shards, "
+            f"{mesh.stats.exchanges // 2} exchanges a run moving "
+            f"{mesh.stats.exchange_bytes // 2} bytes; probe launches {launches} (first and "
+            f"warm runs)")
+    rows = get_option("target_partition_rows")
+    got, first_s = synced(lambda: actor_graph.execute_streaming(plans["q1"]).to_pandas())
+    pd.testing.assert_frame_equal(got, runs["q1"][0], rtol=1e-9)
+    log(f"dist execute_streaming q1: [{gpu}] {li.num_rows} lineitem rows in chunks of "
+        f"target_partition_rows = {rows} -> {len(got)} rows equal to IR.execute's (rtol "
+        f"1e-9); {first_s * 1e3:.2f} ms with to_pandas (host clock)")
+    if spmd.DIST_FALLBACK_COUNTS:
+        raise AssertionError(f"dist fallbacks: {spmd.DIST_FALLBACK_COUNTS}")
+    _dist_done(t0)
+
+
+def _workers(argv, n: int, env_extra=None):
+    """n worker processes of MP_SCRIPT joined through a TCPStore on a free
+    port; returns their JSON results. A worker that fails or outlives
+    MP_TIMEOUT_S fails the phase (every worker is stopped first)."""
+    import socket
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        script = os.path.join(tmp, "worker.py")
+        with open(script, "w") as f:
+            f.write(MP_SCRIPT)
+        procs = []
+        for r in range(n):
+            env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get(
+                "PYTHONPATH", ""), CUDF_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                CUDF_TPU_NUM_PROCESSES=str(n), CUDF_TPU_PROCESS_ID=str(r), **(env_extra or {}))
+            procs.append(subprocess.Popen([sys.executable, script, *argv], cwd=repo, env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MP_TIMEOUT_S) + (p.returncode,))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    results = []
+    for r, (out, err, rc) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError(f"dist worker {r} exited {rc}: {err[-3000:]}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    return results
+
+
+def dist_nccl(gpu: str, ranks: int) -> None:
+    """dist_groupby and dist_sort_values of the README columns (MP_ROWS
+    rows, a rank's rows every ranks-th) across ``ranks`` processes, one
+    card each under NCCL: the groups equal pandas' (keys and counts exact,
+    sums rtol 1e-5), the sort's ranks hold descending ranges in rank
+    order."""
+    t0 = time.perf_counter()
+    res = _workers(["nccl", str(MP_ROWS)], ranks)
+    got = pd.concat([pd.DataFrame(r["groups"]) for r in res])
+    want = (lineitem(MP_ROWS, seed=0).astype({"l_extendedprice": np.float64})
+            .groupby(KEYS, dropna=False)["l_extendedprice"].agg(["sum", "size"])
+            .reset_index())
+    got = got.sort_values(KEYS).reset_index(drop=True)
+    want = want.sort_values(KEYS).reset_index(drop=True)
+    np.testing.assert_array_equal(got[KEYS].to_numpy(float), want[KEYS].to_numpy(float))
+    np.testing.assert_array_equal(got["n"].to_numpy(), want["size"].to_numpy())
+    np.testing.assert_allclose(got["s"], want["sum"], rtol=1e-5)
+    sorts = [r["sort"] for r in res]
+    if sum(n for n, _, _, _ in sorts) != MP_ROWS or not all(ok for _, ok, _, _ in sorts):
+        raise AssertionError("dist sort across ranks lost rows or left a rank unordered")
+    bounds = [(first[0], last[0]) for n, _, first, last in sorts if n]
+    if any(a[1] < b[0] for a, b in zip(bounds, bounds[1:])):
+        raise AssertionError("dist sort across ranks: the ranks' ranges overlap")
+    log(f"dist processes: [{gpu}] across {ranks} ranks (NCCL, one card each): "
+        f"dist_groupby {len(got)} groups equal to pandas (keys and counts exact, sums rtol "
+        f"1e-5), dist_sort_values {MP_ROWS} rows in descending ranges "
+        f"{[n for n, _, _, _ in sorts]} a rank; {time.perf_counter() - t0:.1f} s (host "
+        f"clock, process start included)")
+
+
+def dist_processes(gpu: str) -> None:
+    """Two processes sharing the card (the reference's two-ranks-one-GPU
+    fixture): each runs execute_multiproc of q1 and q3 at SF1 (lineitem
+    MP_ROWS rows) equal to its own IR.execute, and a host_exchange of
+    packed lineitem halves. The cross-process mesh needs one card a rank
+    under NCCL: with two or more cards, dist_groupby of the README query
+    across 2 ranks against pandas; with one, it is not run."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = _workers(["gloo", str(MP_ROWS)], 2)
+    for r in res:
+        log(f"dist processes: [{gpu}] rank {r['rank']} of 2 on one card: execute_multiproc "
+            f"q1 {r['q1']['rows']} rows warm {r['q1']['warm_ms']:.2f} ms, q3 "
+            f"{r['q3']['rows']} rows warm {r['q3']['warm_ms']:.2f} ms, each equal to "
+            f"IR.execute (rtol 1e-9, order exact); host_exchange of lineitem halves "
+            f"({r['exchange_rows']} rows in) {r['exchange_s'] * 1e3:.1f} ms (host clock)")
+    if torch.cuda.device_count() >= 2:
+        dist_nccl(gpu, 2)
+    else:
+        log(f"dist processes: [{gpu}] the cross-process mesh (dist_groupby across 2 ranks) "
+            f"not run: it needs one card a rank under NCCL, and this machine has "
+            f"{torch.cuda.device_count()}")
+    bad = [m for m in sys.modules if m in ("jax", "cudf_tpu")
+           or m.startswith(("jax.", "cudf_tpu."))]
+    if bad:
+        raise AssertionError(f"dist: {bad[:5]} imported")
+    log("dist: neither jax nor cudf_tpu is in sys.modules")
+    _dist_done(t0)
+
+
+
 def main() -> int:
     import torch
 
@@ -3241,6 +3714,7 @@ def main() -> int:
 
     onehot = kernels_vs_plain(gpu, bucket_capacity(n_active), n_active)
     tbl, onehot["launches"], readme_out = main_path(gpu, df)
+    dist_readme(gpu, tbl, readme_out)
     nested_intervals(gpu, tbl, df)
     nested_sketches(gpu, tbl, df)
     nested_pack(gpu, tbl)
@@ -3269,6 +3743,7 @@ def main() -> int:
     accel_merge(gpu, df, od, want)
     decimal_join(gpu, li, filtered, want)
     nested_bloom(gpu, li, filtered, match)
+    dist_q3(gpu, li, filtered, want)
     t1 = time.perf_counter()
     ooc_join_launches, join_s = ooc_join(gpu, li, filtered, want, ooc_budget)
     ooc_s += join_s
@@ -3284,6 +3759,7 @@ def main() -> int:
     del df, od, want, match, li, filtered  # the README and join frames
     torch.cuda.empty_cache()
     sort_tbl, sorted_cols = sort_phase(gpu)
+    dist_sort(gpu, sort_tbl)
     t4 = time.perf_counter()
     ooc_s += ooc_sort(gpu, sort_tbl, sorted_cols)
     del sort_tbl, sorted_cols
@@ -3299,6 +3775,7 @@ def main() -> int:
         probe["io_launches"], scan_s = io_phase(gpu, host, q3_out, tmp)
         accel_runner(gpu, tmp)
     prewarm_first_call(gpu)
+    dist_processes(gpu)
     frame_s += scan_s
     del host
     accel_battery(gpu)
@@ -3328,6 +3805,14 @@ def main() -> int:
         f"groupby and join); one-hot launches {ACCEL['onehot_launches']} (the quick start "
         f"and groupby(l_discount)), probe launches {ACCEL['probe_launches']} (P.merge and "
         f"the decimal64 join)")
+    onehot["dist_launches"] = DIST["onehot_launches"]
+    probe["dist_launches"] = DIST["probe_launches"]
+    log(f"phases: [{gpu}] distributed {DIST['seconds']:.1f} s (host clock, data, in-memory "
+        f"twins and checks included: dist_groupby of the README query, the Q3 dist_join, "
+        f"dist_sort_values, the broadcast joins, execute_spmd of q1/q3/q5/q6, "
+        f"execute_streaming of q1, two processes sharing the card); one-hot launches "
+        f"{DIST['onehot_launches']} (the shards' groupbys), probe launches "
+        f"{DIST['probe_launches']} (the shards' joins)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

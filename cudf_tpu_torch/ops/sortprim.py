@@ -35,6 +35,18 @@ def multisort_perm(operands: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+def lsd_payload_sort(words: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor]):
+    """Stable lexicographic sort by words (most significant first) carrying
+    payloads: (sorted words, each sorted row's original index, sorted
+    payloads). The reference runs one flat sort a word, least significant
+    first, each stable by a position tiebreak; here ``multisort_perm``'s
+    stable passes give that permutation, and one gather a tensor applies
+    it. Words are int64 (the order words of ``sorting.build_order_words``
+    hold u64 bits with the top bit flipped, so signed order is theirs)."""
+    perm = multisort_perm(list(words))
+    return [w[perm] for w in words], perm, [p[perm] for p in payloads]
+
+
 def tiled_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum (bool and integer inputs sum in int64)."""
     return torch.cumsum(x, 0)

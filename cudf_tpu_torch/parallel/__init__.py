@@ -1,4 +1,5 @@
-"""Partitioned execution: out-of-core partitions and the lowered-plan
-executor (counterpart of ``cudf_tpu/parallel/``; the distributed modules
-wait for ROADMAP queue 1, distributed)."""
-
+"""Partitioned and distributed execution (counterpart of
+``cudf_tpu/parallel/``): out-of-core partitions, the lowered-plan
+executors, the mesh of shards (``spmd``), the multi-process bootstrap and
+exchange (``multihost``, ``multiproc_stream``) and the streaming actor
+graph (``actor_graph``)."""

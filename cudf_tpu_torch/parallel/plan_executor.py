@@ -8,6 +8,7 @@ utils/config.py:804, in-memory or streaming):
   execute              in memory (``expr/ir.py``; Shuffle and Repartition
                        are no-ops)
   execute_partitioned  the lowered plan, each node a list of partitions
+  execute_spmd         a mesh of shards, exchanges through a communicator
 
 A ``Shuffle`` hash-splits every partition by its keys' murmur3 row hash
 (``ops/hashing.partition_ids``, bit-equal to the reference's; the
@@ -25,8 +26,11 @@ different partition counts (an AssertionError); its ``Sort`` over several
 partitions passes only the first key's ``descending`` flag and its
 ``PartitionedFrame.sort_values`` orders buckets ascending whatever the
 flags. Here a Shuffle returns exactly ``count`` partitions, and a Sort
-passes every key's flags to the port's ``sort_values``. ``execute_spmd``
-(a device mesh) waits for the distributed slice.
+passes every key's flags to the port's ``sort_values``.
+
+``execute_spmd`` runs the plan (not lowered) over a mesh of shards
+(``parallel/spmd.py``): the distributed ops exchange rows themselves, so
+the lowering's Shuffle nodes are not needed.
 """
 from __future__ import annotations
 
@@ -177,7 +181,120 @@ def execute_partitioned(root: IRM.IR, config: Optional[LoweringConfig] = None,
     return _concat(parts)
 
 
-def execute_spmd(root: IRM.IR, *args, **kwargs):
-    """The device-mesh engine: not ported yet."""
-    raise NotImplementedError("execute_spmd is not ported yet (ROADMAP queue 1, "
-                              "distributed: parallel/spmd.py)")
+def execute_spmd(root: IRM.IR, mesh=None, axis: str = "shards") -> Table:
+    """Run ``root`` over a mesh of shards (``parallel/spmd.py``), the
+    reference's node mapping:
+
+      Scan, DataFrameScan      -> rows split into one slice a shard
+      Select/HStack/Filter/
+      Projection               -> ``spmd.dist_elementwise`` on each shard
+      MapFunction              -> the in-memory executor on each shard
+      Distinct                 -> ``spmd.dist_distinct``
+      GroupBy                  -> ``spmd.dist_groupby`` (null keys dropped,
+                                  as in memory) when every agg is a column's
+                                  agg or a count and there are keys; else
+                                  gathered and run in memory
+      Join                     -> ``spmd.broadcast_join`` when the right side
+                                  fits ``broadcast_limit_bytes`` (inner,
+                                  left), ``spmd.dist_semi_anti_join`` with
+                                  that side broadcast (semi, anti), else
+                                  ``spmd.dist_join``
+      Sort                     -> ``spmd.dist_sort_values`` with every key's
+                                  flags
+      Shuffle, Repartition,
+      Cache                    -> nothing: the dist ops exchange themselves
+      anything else            -> gathered to one table and run in memory
+
+    ``mesh`` defaults to one shard a CUDA device."""
+    from ..expr.expressions import Agg, Col, Len
+    from ..expr.lowering import _estimate_bytes
+    from ..ops.groupby import AggSpec
+    from . import spmd
+
+    if mesh is None:
+        mesh = spmd.make_mesh(axis=axis)
+    n = mesh.size
+    cfg = LoweringConfig()
+
+    def to_sharded(t: Table) -> spmd.ShardedTable:
+        parts = _split_rows(t, n)
+        while len(parts) < n:
+            parts.append(t.slice(0, 0))
+        return spmd.ShardedTable.from_tables(parts, mesh, axis)
+
+    def gathered(x) -> Table:
+        return x if isinstance(x, Table) else x.concat_to_table()
+
+    def _local(node: IRM.IR, tables: List[Table]) -> Table:
+        return IRM.execute(node.reconstruct([IRM.DataFrameScan(t) for t in tables]))
+
+    def _exec(node: IRM.IR, visitor):
+        # a ShardedTable for sharded stages, a Table for global ones
+        if isinstance(node, IRM.DataFrameScan):
+            return to_sharded(node._tbl)
+        if isinstance(node, IRM.Scan):
+            from ..io import scan as io_scan
+
+            fmt, paths, columns, scan_device = node.args
+            return to_sharded(io_scan(fmt, list(paths),
+                                      None if columns is None else list(columns),
+                                      device=scan_device))
+        if isinstance(node, (IRM.Select, IRM.HStack, IRM.Filter, IRM.Projection,
+                             IRM.MapFunction, IRM.Distinct)):
+            child = visitor(node.children[0])
+            if isinstance(child, Table):
+                return _local(node, [child])
+            if isinstance(node, IRM.Distinct):
+                subset, keep = node.args
+                return spmd.dist_distinct(child, subset, keep)
+            if isinstance(node, IRM.MapFunction):
+                return spmd._local(child, lambda t: _local(node, [t]))
+            return spmd.dist_elementwise(child, node)
+        if isinstance(node, IRM.GroupBy):
+            child = visitor(node.children[0])
+            if isinstance(child, Table):
+                return _local(node, [child])
+            specs = []
+            for ne in node.agg_exprs:
+                e = ne.expr
+                if isinstance(e, Agg) and isinstance(e.children[0], Col):
+                    specs.append(AggSpec(e.children[0].name, e.kind, ne.name,
+                                         e.param or 0.0))
+                elif isinstance(e, Len):
+                    specs.append(AggSpec("", "size", ne.name))
+                else:
+                    specs = None
+                    break
+            if specs is None or not node.keys:
+                return _local(node, [child.concat_to_table()])
+            return spmd.dist_groupby(child, list(node.keys), specs, dropna_keys=True)
+        if isinstance(node, IRM.Join):
+            lo, ro, how = node.args[0], node.args[1], node.args[2]
+            left = visitor(node.children[0])
+            right = visitor(node.children[1])
+            if isinstance(left, Table) and isinstance(right, Table):
+                return _local(node, [left, right])
+            if isinstance(left, Table):
+                left = to_sharded(left)
+            rbytes = _estimate_bytes(node.children[1])
+            small_right = rbytes is not None and rbytes <= cfg.broadcast_limit_bytes
+            if small_right and how in ("inner", "left"):
+                return spmd.broadcast_join(left, gathered(right), list(lo), list(ro), how)
+            if small_right and how in ("semi", "anti"):
+                return spmd.dist_semi_anti_join(left, None, list(lo), list(ro), how,
+                                                broadcast_right=gathered(right))
+            if isinstance(right, Table):
+                right = to_sharded(right)
+            return spmd.dist_join(left, right, list(lo), list(ro), how)
+        if isinstance(node, IRM.Sort):
+            child = visitor(node.children[0])
+            by, desc, nl = node.args
+            if isinstance(child, Table):
+                return _local(node, [child])
+            return spmd.dist_sort_values(child, list(by), list(desc), list(nl))
+        if isinstance(node, (IRM.Shuffle, IRM.Repartition, IRM.Cache)):
+            return visitor(node.children[0])
+        # global stages (Union included): gather and run in memory
+        return _local(node, [gathered(visitor(c)) for c in node.children])
+
+    return gathered(CachingVisitor(_exec)(root))

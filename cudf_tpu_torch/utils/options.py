@@ -70,10 +70,18 @@ def _bool(v) -> bool:
     return isinstance(v, bool)
 
 
-# Only the options some code of the port reads are registered; the
-# reference's others (spill, target_partition_rows, broadcast_limit_rows,
-# default_float_bitwidth, shuffle_bucket_factor) come with the code that
-# reads them.
+def _pos_int(v) -> bool:
+    return isinstance(v, int) and v > 0
+
+
+# Only the options some code of the port reads are registered
+# (target_partition_rows: parallel/actor_graph.py's chunk rows); the
+# reference's others (spill, broadcast_limit_rows, default_float_bitwidth,
+# shuffle_bucket_factor) come with the code that reads them.
 _register("performance_tracking", False, _bool,
           "Emit per-op timing logs (utils/tracing.py).",
           env="CUDF_TPU_PERFORMANCE_TRACKING")
+_register("target_partition_rows", 4_000_000, _pos_int,
+          "Rows per partition for chunked readers (analog of "
+          "target_partition_size, utils/config.py:277).",
+          env="CUDF_TPU_TARGET_PARTITION_ROWS")

@@ -320,9 +320,18 @@ def test_execute_partitioned_defaults_to_cuda():
 
 
 def test_execute_spmd_names_its_roadmap_item():
+    """The distributed item has landed: ``execute_spmd`` runs. Without a
+    mesh it takes every CUDA device, and asks for one like every entry
+    point; on a CPU mesh it gives the plan's answer
+    (``tests/test_torch_spmd.py`` holds it against the reference)."""
+    from cudf_tpu_torch.parallel import spmd
+
     plan = TIR.DataFrameScan(tt.Table.from_pandas(pd.DataFrame({"a": [1]}), device="cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1, distributed"):
-        tpe.execute_spmd(plan)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tpe.execute_spmd(plan)
+    out = tpe.execute_spmd(plan, mesh=spmd.make_mesh(2, devices=["cpu"]))
+    assert out.to_pandas()["a"].tolist() == [1]
 
 
 def _hash_frame():

@@ -40,7 +40,7 @@ def test_options_equal_the_reference():
     """The port registers the reference's options that its code reads, under
     the same names, defaults and descriptions, and no other."""
     ref = RO.describe_options()
-    assert set(TO.describe_options()) == {"performance_tracking"}
+    assert set(TO.describe_options()) == {"performance_tracking", "target_partition_rows"}
     for name, text in TO.describe_options().items():
         assert text == ref[name]
         assert TO.get_option(name) == RO.get_option(name)
@@ -67,12 +67,25 @@ def test_set_option_validates(bad):
         RO.set_option("performance_tracking", bad)
 
 
-@pytest.mark.parametrize("name", ["spill", "target_partition_rows", "broadcast_limit_rows",
+@pytest.mark.parametrize("name", ["spill", "broadcast_limit_rows",
                                   "default_float_bitwidth", "shuffle_bucket_factor"])
 def test_an_option_nothing_reads_is_not_registered(name):
     RO.get_option(name)
     with pytest.raises(KeyError):
         TO.get_option(name)
+
+
+@pytest.mark.parametrize("value", [1, 4_000_000, True, 0, -5, 2.5, "8", None])
+def test_target_partition_rows_validates_as_the_reference(value):
+    """The actor graph's option takes what the reference's validator takes."""
+    def accepts(opts):
+        try:
+            with opts.option_context("target_partition_rows", value):
+                return opts.get_option("target_partition_rows") == value
+        except ValueError:
+            return False
+
+    assert accepts(TO) == accepts(RO)
 
 
 def test_option_context_restores():
