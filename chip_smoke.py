@@ -173,6 +173,20 @@ Phases (each prints a line; any failure raises and exits nonzero):
                ranks under NCCL only with two or more cards. Each op prints
                shards, rows a shard, bytes exchanged, exchange against
                shard-local time, launches and DIST_FALLBACK_COUNTS (empty).
+ 17. wide    — the wide-key groupby lane (ops/widegroup.py), inside phase
+               9 beside its SF10 tables: (a) 60M rows of bench.py's sparse
+               62-bit surrogate ids, k1 from n // 20 distinct and k2 from a
+               pool of 16 with 1% nulls, grouped by [k1, k2] with mean,
+               sum, count, var, min, max, first, last and size of a seeded
+               f64, dropna_keys True and False; (b) lineitem grouped by
+               l_extendedprice (f64, not integral) with sum(l_quantity),
+               mean(l_discount) and size. Each through groupby_aggregate
+               against pandas (keys, order and counts exact, floats rtol
+               1e-6); the wide lane's counter (wide_groupby.launches) must
+               show that it answered, and neither kernel may launch; then
+               the warm times of the wide lane and the generic engine
+               (groupby.generic_groupby) on the same input, in turns, and
+               each one's device breakdown.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Every time printed stands beside
@@ -1384,7 +1398,7 @@ def _profile_line(profile) -> str:
     return "; ".join(f"{name} {s * 1e3:.2f} ms ({rows} rows)" for name, s, rows in profile)
 
 
-def tpch_phase(gpu: str):
+def tpch_phase(gpu: str, wide_oracle):
     """TPC-H q1, q3, q5 and q6 through the IR executor at SF10
     (benchmarks/tpch.py's gen_tables(60M)), each against pandas, then the
     out-of-core phase's chunked groupby and partitioned TPC-H on the same
@@ -1446,6 +1460,7 @@ def tpch_phase(gpu: str):
     datetime_checks(gpu, host["lineitem"], dev["lineitem"])
     nested_joins(gpu, host, dev)
     dist_tpch(gpu, dev, plans, runs)
+    wide_phase(gpu, dev, wide_oracle)
     t_ooc = time.perf_counter()
     ooc_groupby(gpu, dev["lineitem"])
     ooc_launches = ooc_tpch(gpu, plans, runs)
@@ -3688,6 +3703,251 @@ def dist_processes(gpu: str) -> None:
 
 
 
+# --------------------------------------------------------------- phase 17
+# The wide-key phase runs inside phase 9, where the SF10 tables are alive:
+# a two-key groupby on sparse 62-bit surrogate ids over rows of its own,
+# and phase 9's lineitem grouped by l_extendedprice, a full-range f64 key.
+# Both shapes fail the code-sort lanes' range plans and take the wide lane.
+# pandas' answers take minutes at this size, so a process of their own
+# (wide_oracles) computes them from the same seeds while phases 8 and 9 run.
+WIDE = {"seconds": 0.0}
+WIDE_ROWS = ROWS             # rows of the sparse-key shape
+WIDE_POOL = 16               # distinct k2 ids (tenants)
+WIDE_AGGS = ("mean", "sum", "count", "var", "min", "max", "first", "last")
+WIDE_RUNS = 2                # warm runs a lane, taken in turns: wide, generic, generic, wide
+WIDE_ORACLE_S = 900          # the oracle process not done by then fails the phase
+WIDE_EXACT = {"k1", "k2", "count", "size", "min", "max", "first", "last",
+              "l_extendedprice", "n"}
+WIDE_ORACLE_SCRIPT = """\
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+cs.WIDE_ROWS, cs.ROWS = int(sys.argv[3]), int(sys.argv[4])
+cs.wide_oracles(sys.argv[2])
+"""
+
+
+def wide_sparse_frame(n: int, seed: int = 17):
+    """bench.py's sparse surrogate keys at n rows (bench.py:103,115-116):
+    k1 drawn from np.unique of n // 20 random [0, 2^62) ints; k2 drawn from
+    a pool of WIDE_POOL such ids, 1% null; v a seeded f64."""
+    rng = np.random.default_rng(seed)
+    dim = np.unique(rng.integers(0, 2**62, max(n // 20, 1), dtype=np.int64))
+    pool = rng.integers(0, 2**62, WIDE_POOL, dtype=np.int64)
+    return pd.DataFrame({
+        "k1": dim[rng.integers(0, len(dim), n)],
+        "k2": pd.arrays.IntegerArray(pool[rng.integers(0, WIDE_POOL, n)],
+                                     rng.random(n) < 0.01),
+        "v": rng.normal(size=n),
+    })
+
+
+def _values_and_nulls(series: pd.Series):
+    """(values, null mask) of a pandas column, exact for a masked Int64
+    column (whose to_numpy() rounds through f64); a float NaN is a null."""
+    arr = series.array
+    if isinstance(arr, pd.arrays.IntegerArray):
+        return arr._data, arr._mask
+    vals = series.to_numpy()
+    return vals, np.isnan(vals) if vals.dtype.kind == "f" else np.zeros(len(vals), bool)
+
+
+def wide_oracles(out_dir: str) -> None:
+    """pandas' answers to phase 17's groupbys, from the phase's own seeds:
+    every column's values and nulls written to ``out_dir`` as .npy files,
+    then a file named ``done``. The sparse shape is answered with
+    dropna=False; its dropna=True answer is the same without the null-k2
+    groups."""
+    def save(what, frame):
+        for name in frame.columns:
+            vals, nulls = _values_and_nulls(frame[name])
+            np.save(os.path.join(out_dir, f"{what}.{name}.npy"), vals)
+            np.save(os.path.join(out_dir, f"{what}.{name}.nulls.npy"), nulls)
+
+    df = wide_sparse_frame(WIDE_ROWS)
+    save("sparse", df.groupby(["k1", "k2"], sort=True, dropna=False).agg(
+        **{k: ("v", k) for k in WIDE_AGGS}, size=("v", "size")).reset_index())
+    del df
+    li = gen_tables(ROWS)["lineitem"]
+    save("price", li.groupby("l_extendedprice", sort=True).agg(
+        q=("l_quantity", "sum"), d=("l_discount", "mean"),
+        n=("l_quantity", "size")).reset_index())
+    open(os.path.join(out_dir, "done"), "w").close()
+
+
+def wide_oracle_start():
+    """Start wide_oracles in a process of its own, in a temporary directory;
+    the process is killed and the directory removed at exit."""
+    import atexit
+    import shutil
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_wide_")
+    proc = subprocess.Popen([sys.executable, "-c", WIDE_ORACLE_SCRIPT, repo, out_dir,
+                             str(WIDE_ROWS), str(ROWS)], cwd=repo,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, out_dir, stop
+
+
+def _wide_oracle(oracle, what: str, names) -> dict:
+    """{column: (values, nulls)} of pandas' answer ``what``, once the
+    oracle process is done (it fails the phase if it failed or is late)."""
+    proc, out_dir, _ = oracle
+    if not os.path.exists(os.path.join(out_dir, "done")):
+        _, err = proc.communicate(timeout=WIDE_ORACLE_S)
+        if proc.returncode != 0 or not os.path.exists(os.path.join(out_dir, "done")):
+            raise AssertionError(f"wide: the pandas oracle process exited "
+                                 f"{proc.returncode}: {err[-3000:]}")
+    return {n: (np.load(os.path.join(out_dir, f"{what}.{n}.npy")),
+                np.load(os.path.join(out_dir, f"{what}.{n}.nulls.npy"))) for n in names}
+
+
+def _host_columns(tbl) -> dict:
+    """{column: (values, nulls)} of a port Table on the host, without
+    to_pandas's object columns; a float NaN is a null, as in pandas."""
+    out = {}
+    for name, c in tbl:
+        vals = c.data[:c.length].cpu().numpy()
+        nulls = np.zeros(c.length, bool) if c.validity is None else \
+            ~c.validity[:c.length].cpu().numpy()
+        if vals.dtype.kind == "f":
+            nulls |= np.isnan(vals)
+        out[name] = (vals, nulls)
+    return out
+
+
+def _wide_equal(what: str, got: dict, want: dict) -> None:
+    """Row for row: the WIDE_EXACT columns (keys, counts, first/last,
+    min/max) equal with nulls in the same rows, the others within rtol
+    1e-6."""
+    if list(got) != list(want) or len(got[next(iter(got))][0]) != len(want[next(iter(want))][0]):
+        raise AssertionError(f"wide {what}: columns or rows differ from pandas'")
+    for name, (w, wn) in want.items():
+        g, gn = got[name]
+        if not np.array_equal(gn, wn):
+            raise AssertionError(f"wide {what}: {name}'s nulls differ from pandas'")
+        if name in WIDE_EXACT:
+            if not np.array_equal(g[~gn], w[~wn]):
+                raise AssertionError(f"wide {what}: {name} differs from pandas'")
+        else:
+            np.testing.assert_allclose(g[~gn], w[~wn], rtol=1e-6, atol=1e-8,
+                                       err_msg=f"wide {what}: {name}")
+
+
+def _wide_lanes(gpu: str, what: str, tbl, keys, aggs, dropna: bool) -> str:
+    """Warm times of the wide lane and the generic engine on one input, in
+    turns (wide, generic, generic, wide), and each one's device breakdown."""
+    import torch
+
+    from cudf_tpu_torch.ops.groupby import generic_groupby
+    from cudf_tpu_torch.ops.widegroup import wide_groupby
+
+    lanes = {"wide": lambda: wide_groupby(tbl, keys, aggs, dropna),
+             "generic": lambda: generic_groupby(tbl, keys, aggs, dropna)}
+    times = {"wide": [], "generic": []}
+    for name in ["wide", "generic", "generic", "wide"] * (WIDE_RUNS // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lanes[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    line = ", ".join(f"{n} {' / '.join(f'{t:.2f}' for t in ts)} ms"
+                     for n, ts in times.items())
+    log(f"wide {what}: [{gpu}] warm, host clock ending in a synchronize: {line}")
+    for name, fn in lanes.items():
+        log(f"wide {what}: [{gpu}] {name} lane device breakdown: " + device_breakdown(fn))
+    return f"{what} wide {min(times['wide']):.2f} ms, generic {min(times['generic']):.2f} ms"
+
+
+def _wide_first(gpu: str, what: str, tbl, keys, aggs, dropna: bool):
+    """groupby_aggregate's first call (synchronized) and its answer on the host."""
+    import torch
+
+    from cudf_tpu_torch.ops.groupby import groupby_aggregate
+
+    t0 = time.perf_counter()
+    out = groupby_aggregate(tbl, keys, aggs, dropna_keys=dropna)
+    torch.cuda.synchronize()
+    log(f"wide {what}: [{gpu}] groupby_aggregate(dropna_keys={dropna}) "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms (first, host clock), "
+        f"{out.num_rows} groups")
+    return _host_columns(out)
+
+
+def wide_phase(gpu: str, dev: dict, oracle) -> None:
+    """Phase 17 on phase 9's SF10 tables. (a) The groupby [k1, k2] of
+    WIDE_ROWS rows of sparse 62-bit ids (wide_sparse_frame) with mean, sum,
+    count, var, min, max, first, last and size of v, with dropna_keys True
+    and False; (b) lineitem grouped by l_extendedprice with sum(l_quantity),
+    mean(l_discount) and size. Each through groupby_aggregate against
+    pandas' answer from the oracle process (keys, order and counts exact,
+    floats rtol 1e-6), the wide lane's counter up once a call and neither
+    kernel launched; then the warm times of the wide lane and the generic
+    engine on the same input."""
+    import torch
+
+    from cudf_tpu_torch import Table
+    from cudf_tpu_torch.kernels import hashtable as ht
+    from cudf_tpu_torch.kernels import onehot_groupby as oh
+    from cudf_tpu_torch.ops.groupby import AggSpec
+    from cudf_tpu_torch.ops.widegroup import wide_groupby
+
+    t_phase = time.perf_counter()
+    kernels0 = (ht.probe_table.launches, oh.groupby_sum_count.launches)
+    wide0 = wide_groupby.launches
+    t0 = time.perf_counter()
+    df = wide_sparse_frame(WIDE_ROWS)
+    tbl = Table.from_pandas(df)
+    torch.cuda.synchronize()
+    log(f"wide sparse: [{gpu}] {WIDE_ROWS} rows of k1 (62-bit ids, {WIDE_ROWS // 20} drawn), "
+        f"k2 ({WIDE_POOL} ids, {int(df['k2'].isna().sum())} null) and v, generated and "
+        f"ingested in {time.perf_counter() - t0:.1f} s (host clock)")
+    del df
+    keys = ["k1", "k2"]
+    aggs = [AggSpec("v", k, k) for k in WIDE_AGGS] + [AggSpec("", "size", "size")]
+    got = {dropna: _wide_first(gpu, "sparse", tbl, keys, aggs, dropna)
+           for dropna in (True, False)}
+    sparse = _wide_lanes(gpu, "sparse", tbl, keys, aggs, True)
+    del tbl
+    torch.cuda.empty_cache()
+
+    keys = ["l_extendedprice"]
+    aggs = [AggSpec("l_quantity", "sum", "q"), AggSpec("l_discount", "mean", "d"),
+            AggSpec("", "size", "n")]
+    price_got = _wide_first(gpu, "price", dev["lineitem"], keys, aggs, True)
+    price = _wide_lanes(gpu, "price", dev["lineitem"], keys, aggs, True)
+    answered = wide_groupby.launches - wide0
+    calls = 3 + 2 * (WIDE_RUNS + 1)  # groupby_aggregate, then a shape's timed runs and profile
+    if answered != calls:
+        raise AssertionError(f"wide: the wide lane answered {answered} of {calls} calls")
+    if (ht.probe_table.launches, oh.groupby_sum_count.launches) != kernels0:
+        raise AssertionError("wide: a groupby of the phase launched a kernel")
+
+    t0 = time.perf_counter()
+    want = _wide_oracle(oracle, "sparse", got[False])
+    waited = time.perf_counter() - t0
+    _wide_equal("sparse dropna=False", got[False], want)
+    keep = ~want["k2"][1]
+    _wide_equal("sparse dropna=True", got[True], {n: (v[keep], m[keep])
+                                                  for n, (v, m) in want.items()})
+    _wide_equal("price", price_got, _wide_oracle(oracle, "price", price_got))
+    oracle[2]()
+    log(f"wide: both shapes equal pandas (keys, order, counts, first/last/min/max exact, "
+        f"floats rtol 1e-6), the sparse one both ways; waited {waited:.1f} s for the "
+        f"oracle process, checks {time.perf_counter() - t0 - waited:.1f} s (host clock)")
+    WIDE["seconds"] += time.perf_counter() - t_phase
+    log(f"wide: [{gpu}] best warm times: {sparse}; {price}; the wide lane answered "
+        f"{answered} calls (3 through groupby_aggregate); probe and one-hot launches 0")
+
+
 def main() -> int:
     import torch
 
@@ -3758,6 +4018,7 @@ def main() -> int:
     probe["frame_launches"] = merge_launches
     del df, od, want, match, li, filtered  # the README and join frames
     torch.cuda.empty_cache()
+    wide_oracle = wide_oracle_start()  # pandas' answers for phase 17, beside phases 8 and 9
     sort_tbl, sorted_cols = sort_phase(gpu)
     dist_sort(gpu, sort_tbl)
     t4 = time.perf_counter()
@@ -3765,7 +4026,8 @@ def main() -> int:
     del sort_tbl, sorted_cols
     torch.cuda.empty_cache()
     t4b = time.perf_counter()
-    probe["tpch_launches"], host, q3_out, tpch_ooc_launches, tpch_ooc_s = tpch_phase(gpu)
+    probe["tpch_launches"], host, q3_out, tpch_ooc_launches, tpch_ooc_s = tpch_phase(
+        gpu, wide_oracle)
     probe["ooc_launches"] = ooc_join_launches + tpch_ooc_launches
     ooc_s += tpch_ooc_s
     t5 = time.perf_counter()
@@ -3779,7 +4041,8 @@ def main() -> int:
     frame_s += scan_s
     del host
     accel_battery(gpu)
-    log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch {t5 - t4b - tpch_ooc_s:.1f} s, "
+    log(f"phases: [{gpu}] sort {t4 - t3:.1f} s, tpch "
+        f"{t5 - t4b - tpch_ooc_s - WIDE['seconds']:.1f} s, "
         f"strings {t6 - t5:.1f} s, io {time.perf_counter() - t6:.1f} s (host clock, data "
         f"and oracles included)")
     log(f"phases: [{gpu}] frame {frame_s:.1f} s (host clock, oracles included: the "
@@ -3813,6 +4076,9 @@ def main() -> int:
         f"execute_streaming of q1, two processes sharing the card); one-hot launches "
         f"{DIST['onehot_launches']} (the shards' groupbys), probe launches "
         f"{DIST['probe_launches']} (the shards' joins)")
+    log(f"phases: [{gpu}] wide keys {WIDE['seconds']:.1f} s (host clock, data, pandas "
+        f"oracles and checks included: the sparse two-key groupby both ways, lineitem by "
+        f"l_extendedprice, each lane's warm times and profiles)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
     log(json.dumps({"kernels": [onehot, probe, check]}))

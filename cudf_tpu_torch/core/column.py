@@ -105,6 +105,10 @@ class Column:
         return self.data.device
 
     @property
+    def nullable(self) -> bool:
+        return self.validity is not None
+
+    @property
     def null_count(self) -> int:
         if self._null_count is None:
             if self.validity is None:
@@ -132,6 +136,12 @@ class Column:
         if self.validity is not None:
             m = m & self.validity
         return m
+
+    def with_validity(self, validity: Optional[torch.Tensor]) -> "Column":
+        return Column(self.dtype, self.data, validity, self.length, self.dictionary)
+
+    def declare_non_null(self) -> "Column":
+        return Column(self.dtype, self.data, None, self.length, self.dictionary, 0)
 
     # ------------------------------------------------------------ constructors
     @classmethod
@@ -306,6 +316,9 @@ class Column:
             v = torch.zeros(cap, dtype=torch.bool, device=self.device)
             v[:length] = self.validity[offset:offset + length]
         return Column(self.dtype, data, v, length, self.dictionary)
+
+    def head(self, n: int) -> "Column":
+        return self.slice(0, n)
 
     # ---------------------------------------------------------------- export
     def _host_validity(self, n: int) -> Optional[np.ndarray]:

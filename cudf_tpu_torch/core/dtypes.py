@@ -27,6 +27,7 @@ class Kind:
     STRING = "string"        # dictionary-encoded int32 codes + host values
     DICTIONARY = "dictionary"
     LIST = "list"            # offsets + child (core/lists.py), param: the child's dtype
+    STRUCT = "struct"        # named children (core/structs.py)
 
 
 _INT = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}

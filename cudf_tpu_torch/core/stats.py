@@ -79,6 +79,51 @@ def as_int64(col: Column) -> torch.Tensor:
     return d.to(torch.int64)
 
 
+def _exact_row(col: Column) -> torch.Tensor:
+    """int64 [vmin, vmax, n_valid, has_null] of an exact-64 column."""
+    inb = col.bounds_mask()
+    ok = inb if col.validity is None else inb & col.validity
+    d = as_int64(col)
+    info = torch.iinfo(torch.int64)
+    return torch.stack([torch.where(ok, d, info.max).min(),
+                        torch.where(ok, d, info.min).max(),
+                        ok.sum(), (inb & ~ok).any().to(torch.int64)])
+
+
+def _exact_stats(col: Column, vals) -> ColStats:
+    vmin, vmax, n_valid, has_null = vals
+    if col.dtype.kind == Kind.UINT:
+        vmin, vmax = vmin - _I64_MIN, vmax - _I64_MIN
+    if n_valid == 0:
+        return ColStats(0, 0, True, False, bool(has_null), 0)
+    return ColStats(int(vmin), int(vmax), True, False, bool(has_null), int(n_valid))
+
+
+def _float_row(col: Column) -> torch.Tensor:
+    """f64 [vmin, vmax, n_valid, nonint, anynan, has_null] of a column."""
+    inb = col.bounds_mask()
+    ok = inb if col.validity is None else inb & col.validity
+    d = col.data.to(torch.float64)
+    isnan = torch.isnan(d) if col.dtype.kind == Kind.FLOAT else torch.zeros_like(ok)
+    okv = ok & ~isnan
+    inf = float("inf")
+    return torch.stack([
+        torch.where(okv, d, inf).min(), torch.where(okv, d, -inf).max(),
+        okv.sum().to(torch.float64),
+        (okv & (torch.floor(d) != d)).any().to(torch.float64),
+        (ok & isnan).any().to(torch.float64),
+        (inb & ~ok).any().to(torch.float64)])
+
+
+def _float_stats(vals) -> ColStats:
+    vmin, vmax, n_valid, nonint, anynan, has_null = vals
+    n_valid = int(n_valid)
+    if n_valid == 0:
+        return ColStats(0.0, 0.0, True, bool(anynan), bool(has_null), 0)
+    integral = (not bool(nonint)) and abs(vmin) < 2**52 and abs(vmax) < 2**52
+    return ColStats(vmin, vmax, integral, bool(anynan), bool(has_null), n_valid)
+
+
 def compute_stats(col: Column) -> Optional[ColStats]:
     """Compute (and cache) ColStats for a column; None for unsupported dtypes."""
     if col.stats is not None:
@@ -96,42 +141,66 @@ def compute_stats(col: Column) -> Optional[ColStats]:
         return st
     if k not in _STATS_KINDS:
         return None
-    inb = col.bounds_mask()
-    ok = inb if col.validity is None else inb & col.validity
-    anynull = inb & ~ok
     if _is_exact64(col):
-        d = as_int64(col)
-        info = torch.iinfo(torch.int64)
-        vals = torch.stack([
-            torch.where(ok, d, info.max).min(),
-            torch.where(ok, d, info.min).max(),
-            ok.sum(), anynull.any().to(torch.int64)]).tolist()
-        vmin, vmax, n_valid, has_null = vals
-        if col.dtype.kind == Kind.UINT:
-            vmin, vmax = vmin - _I64_MIN, vmax - _I64_MIN
-        if n_valid == 0:
-            st = ColStats(0, 0, True, False, bool(has_null), 0)
-        else:
-            st = ColStats(int(vmin), int(vmax), True, False, bool(has_null),
-                          int(n_valid))
-        col.stats = st
-        return st
-    d = col.data.to(torch.float64)
-    isnan = torch.isnan(d) if k == Kind.FLOAT else torch.zeros_like(ok)
-    okv = ok & ~isnan
-    inf = float("inf")
-    vals = torch.stack([
-        torch.where(okv, d, inf).min(), torch.where(okv, d, -inf).max(),
-        okv.sum().to(torch.float64),
-        (okv & (torch.floor(d) != d)).any().to(torch.float64),
-        (ok & isnan).any().to(torch.float64),
-        anynull.any().to(torch.float64)]).tolist()
-    vmin, vmax, n_valid, nonint, anynan, has_null = vals
-    n_valid = int(n_valid)
-    if n_valid == 0:
-        st = ColStats(0.0, 0.0, True, bool(anynan), bool(has_null), 0)
+        col.stats = _exact_stats(col, _exact_row(col).tolist())
     else:
-        integral = (not bool(nonint)) and abs(vmin) < 2**52 and abs(vmax) < 2**52
-        st = ColStats(vmin, vmax, integral, bool(anynan), bool(has_null), n_valid)
-    col.stats = st
-    return st
+        col.stats = _float_stats(_float_row(col).tolist())
+    return col.stats
+
+
+def prefetch_stats(cols) -> None:
+    """Compute the stats of every column of ``cols`` that has none yet in
+    one batch: each column's row of reductions is stacked on the device and
+    read with one host copy (the f64 rows as their int64 bits beside the
+    exact rows), so a later ``compute_stats`` finds them cached."""
+    todo = [c for c in cols if isinstance(c, Column) and c.stats is None
+            and c.stats_ref is None and c.dtype.kind in _STATS_KINDS]
+    if not todo:
+        return
+    rows = [_exact_row(c) if _is_exact64(c) else _float_row(c).view(torch.int64)
+            for c in todo]
+    flat = torch.cat(rows).cpu()
+    at = 0
+    for c, r in zip(todo, rows):
+        vals = flat[at:at + r.numel()]
+        at += r.numel()
+        c.stats = (_exact_stats(c, vals.tolist()) if _is_exact64(c)
+                   else _float_stats(vals.view(torch.float64).tolist()))
+
+
+def grouping_code(col: Column, st: ColStats):
+    """One int32 code a row, monotone in sort order (values ascending, then
+    NaN, then null), for an integral-codeable column given its stats.
+    Returns (code, width_bits)."""
+    w = st.code_width()
+    assert w is not None
+    if col.dtype.kind == Kind.FLOAT:
+        code = (col.data.to(torch.float64) - st.vmin).to(torch.int64)
+        code = torch.where(torch.isnan(col.data), st.value_range, code)
+    else:
+        shift = _I64_MIN if col.data.dtype == torch.uint64 else 0
+        code = as_int64(col) - (int(st.vmin) + shift)
+    if col.validity is not None:
+        code = torch.where(col.validity, code, st.value_range + (1 if st.has_nan else 0))
+    return code.clamp(0, (1 << min(w, 30)) - 1).to(torch.int32), w
+
+
+def decode_group_code(code: torch.Tensor, col: Column, st: ColStats):
+    """Inverse of grouping_code: (data, validity or None) in col's dtype."""
+    nan_code = st.value_range
+    null_code = st.value_range + (1 if st.has_nan else 0)
+    phys = col.dtype.physical
+    code = code.to(torch.int64)
+    if col.dtype.kind == Kind.FLOAT:
+        data = (code.to(torch.float64) + st.vmin).to(phys)
+        if st.has_nan:
+            data = torch.where(code == nan_code, float("nan"), data)
+    elif phys == torch.uint64:
+        data = ((code + (int(st.vmin) + _I64_MIN)) ^ _I64_MIN).view(phys)
+    else:
+        data = (code + int(st.vmin)).to(phys)
+    validity = None
+    if st.has_null:
+        validity = code != null_code
+        data = torch.where(validity, data, torch.zeros((), dtype=phys, device=data.device))
+    return data, validity

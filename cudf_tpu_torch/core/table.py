@@ -216,3 +216,32 @@ class Table:
         import pyarrow as pa
 
         return pa.table({n: c.to_arrow() for n, c in self._columns.items()})
+
+
+def tables_equal(a: "Table", b: "Table") -> bool:
+    """pylibcudf.table_equality analog: the same names, row count and
+    dtypes, and every row equal: both cells missing (a null, or a NaN in a
+    float column) or both holding one value. String cells compare by
+    value, across dictionaries; one comparison on the device a column."""
+    if list(a.names) != list(b.names) or a.num_rows != b.num_rows:
+        return False
+    n = a.num_rows
+    for ca, cb in zip(a.columns, b.columns):
+        if ca.dtype != cb.dtype:
+            return False
+        da, db = ca.data[:n], cb.data[:n].to(ca.device)
+        if ca.dtype.is_string and not np.array_equal(ca.dictionary, cb.dictionary):
+            pos = np.searchsorted(ca.dictionary, cb.dictionary)
+            hit = pos < len(ca.dictionary)
+            hit[hit] = ca.dictionary[pos[hit]] == cb.dictionary[hit]
+            remap = torch.as_tensor(np.where(hit, pos, -1), device=ca.device)
+            db = remap[db.to(torch.int64)].to(da.dtype) if len(remap) else db
+        miss_a = ~ca.valid_mask()[:n]
+        miss_b = ~cb.valid_mask()[:n].to(ca.device)
+        if ca.dtype.is_floating:
+            miss_a |= torch.isnan(da)
+            miss_b |= torch.isnan(db)
+        same = (miss_a == miss_b) & (miss_a | (da == db))
+        if not bool(same.all()):
+            return False
+    return True

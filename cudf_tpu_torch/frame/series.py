@@ -975,6 +975,16 @@ class _DatetimeAccessor:
         return self._field("day_of_year")
 
 
+class DataFrameProxy:
+    """A DataFrame over a Table: ``DataFrameProxy(tbl)`` builds the
+    frame (what ``value_counts`` returns)."""
+
+    def __new__(cls, tbl):
+        from .dataframe import DataFrame
+
+        return DataFrame._from_table(tbl)
+
+
 class _Rolling:
     def __init__(self, s, window, min_periods, center):
         self._s, self._w, self._mp, self._c = s, window, min_periods, center

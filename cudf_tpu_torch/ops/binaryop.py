@@ -188,3 +188,24 @@ def binary_op(lhs: Union[Column, Scalar], rhs: Union[Column, Scalar], op: str) -
     else:
         validity = lv & rv
     return Column(out_dt, out, validity, col.length)
+
+
+# convenience wrappers -------------------------------------------------------
+def add(l, r):
+    return binary_op(l, r, "add")
+
+
+def sub(l, r):
+    return binary_op(l, r, "sub")
+
+
+def mul(l, r):
+    return binary_op(l, r, "mul")
+
+
+def div(l, r):
+    return binary_op(l, r, "div")
+
+
+def eq(l, r):
+    return binary_op(l, r, "eq")

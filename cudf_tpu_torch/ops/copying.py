@@ -110,3 +110,59 @@ def copy_if_else(lhs: Column, rhs, cond: Column) -> Column:
         validity = torch.where(c, ones if lhs.validity is None else lhs.validity,
                                ones if rv is None else rv)
     return Column(lhs.dtype, data, validity, lhs.length, lhs.dictionary)
+
+
+def interleave_columns(tbl: Table) -> Column:
+    """cudf::interleave_columns (cpp/src/reshape/interleave_columns.cu):
+    columns [a b c] of n rows become one column [a0 b0 c0 a1 b1 c1 ...]
+    in the first column's dtype (string columns on their union
+    dictionary)."""
+    from .strings import unify_dictionaries
+
+    cols = [c for _, c in tbl]
+    if cols[0].dtype.is_string:
+        cols = unify_dictionaries(cols)
+    n, k = cols[0].length, len(cols)
+    total = n * k
+    cap = bucket_capacity(total)
+    dev = cols[0].device
+    data = torch.zeros(cap, dtype=cols[0].data.dtype, device=dev)
+    data[:total] = torch.stack([c.data[:n].to(data.dtype) for c in cols], 1).reshape(-1)
+    validity = None
+    if any(c.validity is not None for c in cols):
+        validity = torch.zeros(cap, dtype=torch.bool, device=dev)
+        validity[:total] = torch.stack([c.valid_mask()[:n] for c in cols], 1).reshape(-1)
+    return Column(cols[0].dtype, data, validity, total, cols[0].dictionary)
+
+
+def bools_to_mask(col: Column) -> Column:
+    """cudf::bools_to_mask: a bool column whose validity is its own truth
+    (a null or False row becomes a null)."""
+    from ..core import dtypes
+
+    v = col.data.to(torch.bool) & col.valid_mask()
+    return Column(dtypes.bool_, v, v, col.length)
+
+
+def row_bit_count(tbl: Table) -> Column:
+    """cudf::row_bit_count: each row's storage bits, int32. A fixed-width
+    value counts its width; a string its UTF-8 bytes times 8 plus a 32-bit
+    offset; a column with a mask one bit more."""
+    import numpy as np
+
+    from ..core import dtypes
+
+    cols = [c for _, c in tbl]
+    cap, dev = cols[0].capacity, cols[0].device
+    bits = torch.zeros(cap, dtype=torch.int32, device=dev)
+    for c in cols:
+        if c.dtype.is_string:
+            d = c.dictionary if c.dictionary is not None else np.array([], object)
+            lens = [len(s.encode()) * 8 for s in d] or [0]
+            lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+            per = lens[c.data.to(torch.int64).clamp(0, len(lens) - 1)] + 32
+        else:
+            per = torch.full((cap,), c.data.element_size() * 8, dtype=torch.int32,
+                             device=dev)
+        bits += per + (1 if c.validity is not None else 0)
+    return Column(dtypes.int32, bits, None, cols[0].length)

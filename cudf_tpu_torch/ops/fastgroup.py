@@ -345,15 +345,11 @@ def _value_columns(tbl: Table, keys, aggs):
     return vcols, kinds, agg_vidx
 
 
-def _group_ids(skey: torch.Tensor, act: torch.Tensor):
-    """(newgrp, seg, n_groups, n_active) over key-sorted words, active rows
-    first; ``seg`` sends inactive rows to the overflow segment n_groups."""
+def new_groups(skey: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """Each key-sorted row's new-group flag, over the active rows (first)."""
     newgrp = torch.ones_like(act)
     newgrp[1:] = skey[1:] != skey[:-1]
-    newgrp &= act
-    n_groups, n_active = torch.stack([newgrp.sum(), act.sum()]).tolist()
-    seg = torch.where(act, tiled_cumsum(newgrp) - 1, n_groups)
-    return newgrp, seg, n_groups, n_active
+    return newgrp & act
 
 
 def _at_group(arr: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
@@ -375,22 +371,34 @@ def fast_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool) -> Op
     sentinel = 1 << tbits
     scode, pos = torch.sort(torch.where(active, slot, sentinel), stable=True)
     act = scode < sentinel
-    newgrp, seg, n_groups, n_active = _group_ids(scode, act)
+    out, starts, n_groups = aggregate_sorted(tbl, keys, aggs, pos, act,
+                                             new_groups(scode, act))
+    out.update(decode_keys(keys, kcols, plan, scode[starts], n_groups))
+    return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})
+
+
+def aggregate_sorted(tbl: Table, keys: Sequence[str], aggs, pos: torch.Tensor,
+                     act: torch.Tensor, newgrp: torch.Tensor):
+    """The aggregates of rows sorted by key: ``pos`` is each sorted row's
+    original index, active rows first (``act``), and ``newgrp`` marks each
+    group's first row. Returns ({out_name: Column}, each group's first
+    sorted row, n_groups); the caller adds the key columns. Inactive rows
+    go to the overflow segment n_groups."""
+    n_groups, n_active = torch.stack([newgrp.sum(), act.sum()]).tolist()
+    seg = torch.where(act, tiled_cumsum(newgrp) - 1, n_groups)
     starts, lengths = group_starts(newgrp, n_active)
     sums = GroupSums(seg, lengths, n_active)
-
     vcols, kinds, agg_vidx = _value_columns(tbl, keys, aggs)
     arrs_by_col = []
     for c, kset in zip(vcols, kinds):
         sval = c.validity[pos] if c.validity is not None else None
         arrs_by_col.append(build_scan_arrays(c.data[pos], sval, act, seg, n_groups,
                                              sums, kset))
-
-    out = decode_keys(keys, kcols, plan, scode[starts], n_groups)
+    out = {}
     for spec, vidx in zip(aggs, agg_vidx):
         out[spec.out_name] = _finish_agg(spec, arrs_by_col[vidx], vcols[vidx],
                                          lengths, seg, pos, n_groups)
-    return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})
+    return out, starts, n_groups
 
 
 def _finish_agg(spec, arrs, vcol, lengths, seg, pos, n_groups) -> Column:

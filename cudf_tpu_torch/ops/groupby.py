@@ -10,9 +10,11 @@ Dispatch, in order:
      behind an opt-in switch and reaches its sort lane first;
   2. the single-word code sort (``sortgroup.sort_groupby``);
   3. the code sort with argmin/argmax (``fastgroup.fast_groupby``);
-  4. the generic engine below: a stable lexicographic sort of row codes,
-     then per-segment reductions — it also answers what the reference's
-     wide lane answers (non-integral float keys).
+  4. the wide-key lane (``widegroup.wide_groupby``): sparse 64-bit ids and
+     full-range floats in at most three packed words, no range assumption;
+  5. the generic engine below (``generic_groupby``): a stable
+     lexicographic sort of row codes, then per-segment reductions, for
+     every key and aggregation.
 
 Every lane returns groups in ascending key order with nulls last (pandas
 sort=True). Past the memory the op may use, ``groupby_aggregate`` runs
@@ -79,6 +81,7 @@ def aggregate_in_memory(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec]
                         dropna_keys: bool = True) -> Table:
     """The groupby lanes over the whole table at once (never chunked)."""
     from .sortgroup import sort_groupby
+    from .widegroup import wide_groupby
 
     aggs = tuple(aggs)
     onehot = _onehot_plan(tbl, keys, aggs)
@@ -90,7 +93,21 @@ def aggregate_in_memory(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec]
     fast = fastgroup.fast_groupby(tbl, keys, aggs, dropna_keys)
     if fast is not None:
         return fast
+    wide = wide_groupby(tbl, keys, aggs, dropna_keys)
+    if wide is not None:
+        return wide
+    return generic_groupby(tbl, keys, aggs, dropna_keys)
 
+
+# ---------------------------------------------------------------------------
+# generic engine
+# ---------------------------------------------------------------------------
+
+def generic_groupby(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
+                    dropna_keys: bool = True) -> Table:
+    """The generic engine: every key, dtype and aggregation (the lane of
+    last resort, and the wide lane's twin in ``chip_smoke.py``)."""
+    aggs = tuple(aggs)
     kcols = tuple(tbl[k] for k in keys)
     perm, seg, newgrp, inb_sorted, n_groups = _grouping(kcols, dropna_keys)
     out_cap = bucket_capacity(max(n_groups, 1))
@@ -106,10 +123,6 @@ def aggregate_in_memory(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec]
                           inb_sorted, n_groups, tuple(vperms))
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})
 
-
-# ---------------------------------------------------------------------------
-# generic engine
-# ---------------------------------------------------------------------------
 
 def _anynull(keys) -> torch.Tensor:
     out = torch.zeros(keys[0].capacity, dtype=torch.bool, device=keys[0].device)

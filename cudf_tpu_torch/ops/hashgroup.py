@@ -12,8 +12,14 @@ half, ``k2`` the high half, as int32 tensors holding the u32 bit pattern
 packing and the caller takes the sort lane. The reference packs u32
 operands into as many u32 words as it needs; the port's table takes two.
 
-The round-synchronous hash groupby of the reference module
-(``build_direct``, ``build_probe``, ``lookup``) is a later slice.
+The reference module's round-synchronous table (``build_direct``,
+``build_probe``, ``lookup``, ``table_bits``) is here too, as a library
+off the join dispatch (joins keep the probe kernel of
+``kernels/hashtable.py``). Its words are u32 patterns, in int32 or int64
+tensors, as many as the caller packed. Every row of a round scatter-mins
+its row id into its candidate slot (``scatter_reduce("amin")``), so the
+smallest row id wins a slot on every device and run: the slots and
+representatives equal the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -23,9 +29,12 @@ import torch
 
 from ..core.column import Column
 from . import rowcodes
+from .hashing import hash_operands
 
 MAX_BITS = 64
+DIRECT_BITS = 23  # direct-address table cap: 2^23 slots = 32MB of int32
 _M32 = 0xFFFFFFFF
+_BIG = (1 << 31) - 1  # an empty slot's representative
 
 
 def equality_ops(cols: Sequence[Column]) -> List[torch.Tensor]:
@@ -77,3 +86,100 @@ def pack_like(ops: Sequence[torch.Tensor], mins_spec, widths_spec):
     keep, mins = mins_spec
     _, widths = widths_spec
     return _pack(ops, keep, mins, widths)
+
+
+# --------------------------------------------------------------------------
+# the round-synchronous table (build all rows, find each row's slot)
+# --------------------------------------------------------------------------
+
+def _u32(words) -> List[torch.Tensor]:
+    return [w.to(torch.int64) & _M32 for w in words]
+
+
+def table_bits(cap: int, width: int) -> Tuple[int, bool]:
+    """(tbits, direct): table size for a build over ``cap`` rows."""
+    if width <= DIRECT_BITS:
+        return max(width, 1), True
+    return max(cap.bit_length(), 7) + 1, False  # 2*capacity, load <= 0.5
+
+
+def _scatter_min(T: int, slot: torch.Tensor, rowid: torch.Tensor) -> torch.Tensor:
+    """int32[T]: the smallest ``rowid`` sent to each slot, _BIG where none
+    (slot T is the overflow slot, cut off)."""
+    out = torch.full((T + 1,), _BIG, dtype=torch.int32, device=slot.device)
+    return out.scatter_reduce_(0, slot.to(torch.int64), rowid, "amin")[:T]
+
+
+def build_direct(words, active: torch.Tensor, tbits: int):
+    """Direct-address build: slot = the one packed word. Returns
+    (slot, rep_by_slot), int32: slot T for inactive rows; rep_by_slot[s]
+    the smallest active row id with key s, else INT32_MAX."""
+    (w,) = _u32(words)
+    T = 1 << tbits
+    rowid = torch.arange(w.shape[0], dtype=torch.int32, device=w.device)
+    slot = torch.where(active, w.to(torch.int32), T)
+    return slot, _scatter_min(T, slot, torch.where(active, rowid, _BIG))
+
+
+def _keys_eq(words, build_words, rep: torch.Tensor) -> torch.Tensor:
+    src = rep.clamp(0, build_words[0].shape[0] - 1).to(torch.int64)
+    eq = torch.ones(words[0].shape[0], dtype=torch.bool, device=rep.device)
+    for wd, bw in zip(words, build_words):
+        eq &= bw[src] == wd
+    return eq
+
+
+def build_probe(words, active: torch.Tensor, tbits: int):
+    """Linear-probe build over all active rows. Returns (slot,
+    rep_by_slot), int32. Each round every unsettled row scatter-mins its
+    row id into its candidate slot; an empty slot keeps the winner as its
+    representative; a row whose slot's representative has its key
+    settles there, and the rest move to the next slot."""
+    words = _u32(words)
+    T = 1 << tbits
+    cap = words[0].shape[0]
+    dev = words[0].device
+    rowid = torch.arange(cap, dtype=torch.int32, device=dev)
+    slot = torch.where(active, (hash_operands(words) & (T - 1)).to(torch.int32), 0)
+    my_slot = torch.full((cap,), T, dtype=torch.int32, device=dev)
+    settled = ~active
+    slot_key = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    for _ in range(T):
+        if bool(settled.all()):
+            break
+        cand = _scatter_min(T, torch.where(settled, T, slot),
+                            torch.where(settled, _BIG, rowid))
+        slot_key = torch.where((slot_key < 0) & (cand < _BIG), cand, slot_key)
+        rep = slot_key[slot.to(torch.int64)]
+        newly = ~settled & _keys_eq(words, words, rep)
+        my_slot = torch.where(newly, slot, my_slot)
+        settled = settled | newly
+        slot = torch.where(settled, slot, (slot + 1) & (T - 1))
+    return my_slot, torch.where(slot_key < 0, _BIG, slot_key)
+
+
+def lookup(words, active: torch.Tensor, rep_by_slot: torch.Tensor, build_words,
+           tbits: int, direct: bool) -> torch.Tensor:
+    """Each active row's slot in a built table (int32): the matching slot,
+    or T for a miss or an inactive row. ``build_words`` are the build
+    side's words, to verify keys; a row misses at the first empty slot."""
+    words = _u32(words)
+    T = 1 << tbits
+    if direct:
+        slot = words[0].to(torch.int32)
+        used = rep_by_slot[slot.clamp(0, T - 1).to(torch.int64)] < _BIG
+        return torch.where(active & used, slot, T)
+    build_words = _u32(build_words)
+    slot = (hash_operands(words) & (T - 1)).to(torch.int32)
+    result = torch.full_like(slot, T)
+    settled = ~active
+    for _ in range(T):
+        if bool(settled.all()):
+            break
+        rep = rep_by_slot[slot.to(torch.int64)]
+        empty = rep == _BIG
+        hit = ~settled & ~empty & _keys_eq(words, build_words, rep)
+        result = torch.where(hit, slot, result)
+        settled = settled | hit | empty
+        slot = torch.where(settled, slot, (slot + 1) & (T - 1))
+    return result

@@ -8,8 +8,8 @@
      signed order is the word's unsigned order);
   3. sums, counts and M2 are per-group sums over the sorted rows, each
      adding only its own group's rows in a fixed order, and the order
-     statistics per-group reductions (``fastgroup.build_scan_arrays``);
-  4. the group-END rows, in key order, carry the key words and the sizes.
+     statistics per-group reductions (``fastgroup.aggregate_sorted``);
+  4. each group's first row, in key order, carries the key word.
 
 The reference takes a group's sum as the difference of two prefix sums
 over the whole sorted table, which spreads a NaN into every later group and
@@ -22,16 +22,15 @@ match both of the reference's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
-from ..core import dtypes
 from ..core import stats as colstats
 from ..core.column import Column
 from ..core.table import Table
 from . import fastgroup
-from .fastgroup import _I64_MIN, _dtype_of, padded_column
+from .fastgroup import _I64_MIN
 
 _SUPPORTED = {
     "sum", "product", "min", "max", "count", "size", "any", "all", "mean",
@@ -68,86 +67,6 @@ def _make_word(kcols: Sequence[Column], plan, dropna: bool):
     return torch.where(active, slot ^ _I64_MIN, (1 << tbits) + _I64_MIN), active
 
 
-def _pass1(word, vcols, kinds, tbits):
-    """Sort rows by key word; build the per-group arrays."""
-    skey, spos = torch.sort(word, stable=True)
-    act = skey < (1 << tbits) + _I64_MIN
-    newgrp, seg, n_groups, n_active = fastgroup._group_ids(skey, act)
-    starts, lengths = fastgroup.group_starts(newgrp, n_active)
-    sums = fastgroup.GroupSums(seg, lengths, n_active)
-    arrs_by_col = []
-    for c, kset in zip(vcols, kinds):
-        sval = c.validity[spos] if c.validity is not None else None
-        arrs_by_col.append(fastgroup.build_scan_arrays(
-            c.data[spos], sval, act, seg, n_groups, sums, kset))
-    return (skey ^ _I64_MIN)[starts], n_groups, lengths, arrs_by_col
-
-
-def _finalize_body(gcode, arrs_by_col, lengths, n_groups, aggs, agg_vidx,
-                   vcols, kcols, keynames, plan) -> Dict[str, Column]:
-    """Group answers from each group's key code and per-group arrays."""
-    out = fastgroup.decode_keys(keynames, kcols, plan, gcode, n_groups)
-
-    for spec, vidx in zip(aggs, agg_vidx):
-        vcol = vcols[vidx]
-        arrs = arrs_by_col[vidx]
-        cnt = arrs["g_cnt"]
-        validity = cnt > 0
-        kind = spec.kind
-
-        if kind == "size":
-            data, dt, validity = lengths, dtypes.int64, None
-        elif kind == "count":
-            data, dt, validity = cnt, dtypes.int64, None
-        elif kind == "sum_of_squares":
-            data = arrs["g_sos"]
-            dt = _dtype_of(data)
-        elif kind == "sum":
-            data = arrs["g_sum"]
-            if vcol.dtype.is_floating and vcol.dtype.bits <= 32:
-                data, dt = data.to(torch.float32), dtypes.float32
-            else:
-                dt = _dtype_of(data)
-        elif kind == "mean":
-            data = arrs["g_sum"].to(torch.float64) / cnt.clamp(min=1)
-            dt = dtypes.float64
-        elif kind in ("var", "std", "m2"):
-            m2 = arrs["g_m2"]
-            dt = dtypes.float64
-            if kind == "m2":
-                data = m2
-            else:
-                ddof = int(spec.param) if spec.param else 1
-                denom = cnt - ddof
-                var = torch.where(denom > 0, m2 / denom.clamp(min=1), float("nan"))
-                validity = validity & (denom > 0)
-                data = var if kind == "var" else torch.sqrt(var)
-        elif kind == "product":
-            data = arrs["prod"]
-            dt = _dtype_of(data)
-        elif kind in ("min", "max"):
-            data = arrs["smin" if kind == "min" else "smax"]
-            dt = vcol.dtype
-        elif kind in ("any", "all"):
-            data = arrs["sany" if kind == "any" else "sall"].to(torch.bool)
-            dt = dtypes.bool_
-        elif kind in ("first", "nth", "last"):
-            sv_full = arrs["sv"]
-            cap = sv_full.shape[0]
-            if kind == "last":
-                idx = arrs["slast"].clamp(0, cap - 1)
-            else:
-                idx = arrs["sfirst"].clamp(0, cap - 1)
-                if kind == "nth":
-                    idx = (idx + int(spec.param)).clamp(0, cap - 1)
-            data, dt = sv_full[idx], vcol.dtype
-        else:  # pragma: no cover - guarded by _SUPPORTED
-            raise ValueError(kind)
-        out[spec.out_name] = padded_column(dt, data, validity, n_groups,
-                                           vcol.dictionary if dt == vcol.dtype else None)
-    return out
-
-
 def sort_groupby(tbl: Table, keys: Sequence[str], aggs,
                  dropna_keys: bool) -> Optional[Table]:
     """Single-word code-sort groupby; None when this plan doesn't apply."""
@@ -159,8 +78,10 @@ def sort_groupby(tbl: Table, keys: Sequence[str], aggs,
         return None
     tbits = sum(w for _, w in plan)
     word, _ = _make_word(kcols, plan, dropna_keys)
-    vcols, kinds, agg_vidx = fastgroup._value_columns(tbl, keys, aggs)
-    gcode, n_groups, lengths, arrs_by_col = _pass1(word, vcols, kinds, tbits)
-    out = _finalize_body(gcode, arrs_by_col, lengths, n_groups, aggs, agg_vidx,
-                         vcols, kcols, keys, plan)
+    skey, pos = torch.sort(word, stable=True)
+    act = skey < (1 << tbits) + _I64_MIN
+    out, starts, n_groups = fastgroup.aggregate_sorted(
+        tbl, keys, aggs, pos, act, fastgroup.new_groups(skey, act))
+    out.update(fastgroup.decode_keys(keys, kcols, plan, (skey ^ _I64_MIN)[starts],
+                                     n_groups))
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})

@@ -8,9 +8,10 @@ passes, least significant operand first, which yields the same stable
 lexicographic permutation.
 
 The reference's tiled scans exist to bound TPU compile time; the
-counterparts here are flat torch scans. ``segmented_scan`` becomes
-``segment_reduce``: every caller reads a segmented scan only at the group's
-end row, which is the per-group reduction.
+counterparts here are flat torch scans. The groupby lanes read a segmented
+scan only at a group's end row, which is the per-group reduction, so they
+call ``segment_reduce``; ``segmented_scan`` gives every row's inclusive
+value for any associative ``combine``.
 """
 from __future__ import annotations
 
@@ -72,3 +73,22 @@ def segment_reduce(vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
     [0, num_segments): callers send padding to an overflow segment."""
     out = torch.full((num_segments,), init, dtype=vals.dtype, device=vals.device)
     return out.scatter_reduce_(0, seg, vals, reduce, include_self=True)
+
+
+def segmented_scan(vals: torch.Tensor, newseg: torch.Tensor, combine) -> torch.Tensor:
+    """Inclusive segmented scan: restarts at rows where ``newseg`` is True.
+
+    ``combine(a, b)`` is any associative elementwise tensor function
+    (``torch.add``, ``torch.minimum``, ``torch.maximum``, ``torch.mul``,
+    "keep first" ``lambda a, b: a``). The (flag, value) pair semigroup
+    ``(fa, va) . (fb, vb) = (fa | fb, vb if fb else combine(va, vb))`` is
+    associative, so a log-step (Hillis-Steele) scan over the pairs does it
+    in ceil(log2 n) steps."""
+    v, f = vals.clone(), newseg.to(torch.bool).clone()
+    n, d = v.shape[0], 1
+    while d < n:
+        nv = torch.where(f[d:], v[d:], combine(v[:-d], v[d:]))
+        f[d:] = f[d:] | f[:-d]
+        v[d:] = nv
+        d *= 2
+    return v

@@ -64,12 +64,30 @@ def _compact(tbl: Table, keep: torch.Tensor) -> Table:
     return Table({n: _compact_column(c, idx, n_out, out_cap) for n, c in tbl})
 
 
-def apply_boolean_mask(tbl: Table, mask: Column) -> Table:
-    """Keep rows where mask is true (null mask rows are dropped — cuDF)."""
+def _mask_keep(mask: Column) -> torch.Tensor:
     keep = mask.data.to(torch.bool) & mask.bounds_mask()
     if mask.validity is not None:
         keep &= mask.validity
-    return _compact(tbl, keep)
+    return keep
+
+
+def apply_boolean_mask(tbl: Table, mask: Column) -> Table:
+    """Keep rows where mask is true (null mask rows are dropped — cuDF)."""
+    return _compact(tbl, _mask_keep(mask))
+
+
+def compact_known_count(tbl: Table, mask: Column, n_out: int) -> Table:
+    """apply_boolean_mask with the survivor count known on the host: no
+    host read. Each kept row's output slot is the running count of kept
+    rows before it; one scatter sends the row ids there (dropped rows to a
+    slot past the end). Callers that batch many small compactions read
+    all their counts at once, then compact."""
+    keep = _mask_keep(mask)
+    dst = torch.where(keep, torch.cumsum(keep, 0) - 1, n_out).clamp(max=n_out)
+    idx = torch.zeros(n_out + 1, dtype=torch.int64, device=keep.device)
+    idx.scatter_(0, dst, torch.arange(keep.shape[0], device=keep.device))
+    out_cap = bucket_capacity(max(n_out, 1))
+    return Table({n: _compact_column(c, idx[:n_out], n_out, out_cap) for n, c in tbl})
 
 
 def filter_column(col: Column, mask: Column) -> Column:

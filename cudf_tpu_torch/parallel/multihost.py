@@ -155,15 +155,30 @@ def _from_blob(b: bytes, device) -> Table:
     return unpack(PackedColumns(b[8: 8 + mlen], b[8 + mlen:]), device)
 
 
+# cumulative wall seconds this process spent inside host_exchange: the
+# per-rank exchange-against-compute breakdown of a scaling run
+EXCHANGE_SECONDS = 0.0
+
+
 def host_exchange(partitions_by_dest: Sequence[Table], timeout_ms: int = 600_000,
                   spill_store=None) -> List[Table]:
     """Send ``partitions_by_dest[p]`` to process p; returns what every
     process addressed to this one, in sender order, on this process's
-    partition's device.
+    partition's device. Its wall seconds add to ``EXCHANGE_SECONDS``.
 
     ``spill_store``: optional ``utils.native.PartitionStore``; received
     blobs stage through it (RAM, then disk) until every source is in.
     A blob that has not arrived ``timeout_ms`` after the call raises."""
+    global EXCHANGE_SECONDS
+    t0 = time.perf_counter()
+    try:
+        return _host_exchange(partitions_by_dest, timeout_ms, spill_store)
+    finally:
+        EXCHANGE_SECONDS += time.perf_counter() - t0
+
+
+def _host_exchange(partitions_by_dest: Sequence[Table], timeout_ms: int,
+                   spill_store) -> List[Table]:
     from concurrent.futures import ThreadPoolExecutor
 
     parts = list(partitions_by_dest)

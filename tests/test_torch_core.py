@@ -329,3 +329,125 @@ def test_table_methods_match_reference():
         pd.testing.assert_frame_equal(p.to_pandas(), r.to_pandas())
     mixed = tt.Table.from_pydict({"c": pt["a"], "n": [4, 5, 6]}, device="cpu")
     assert mixed["c"] is pt["a"] and mixed.names == ["c", "n"]
+
+
+# ---------------------------------------------------------------------------
+# tables_equal, the Column helpers, Kind.STRUCT, batched stats, group codes
+# ---------------------------------------------------------------------------
+
+def _tables_equal_cases():
+    base = {"x": [1.0, np.nan], "y": ["a", "b"]}
+    return {
+        "reference_case_equal": (base, dict(base)),
+        "reference_case_differs": (base, {"x": [1.0, 2.0], "y": ["a", "b"]}),
+        "names_differ": (base, {"x": [1.0, np.nan], "z": ["a", "b"]}),
+        "rows_differ": (base, {"x": [1.0], "y": ["a"]}),
+        "dtypes_differ": ({"a": np.array([1, 2], np.int32)}, {"a": np.array([1, 2])}),
+        "int_nulls_equal": ({"a": pd.array([1, None, 3], "Int64")},
+                            {"a": pd.array([1, None, 3], "Int64")}),
+        "int_nulls_moved": ({"a": pd.array([1, None, 3], "Int64")},
+                            {"a": pd.array([1, 2, None], "Int64")}),
+        "null_against_nan": ({"a": pd.array([1.0, None], "Float64")},
+                             {"a": np.array([1.0, np.nan])}),
+        "strings_on_two_dictionaries": ({"s": ["b", "c", None]}, {"s": ["b", "c", None]}),
+        "strings_differ": ({"s": ["b", "c", "d"]}, {"s": ["b", "c", "e"]}),
+        "minus_zero": ({"f": [0.0, 1.0]}, {"f": [-0.0, 1.0]}),
+    }
+
+
+@pytest.mark.parametrize("case", list(_tables_equal_cases()))
+def test_tables_equal_matches_reference(case):
+    from cudf_tpu.core.table import tables_equal as r_eq
+    from cudf_tpu_torch.core.table import tables_equal as t_eq
+
+    a, b = (pd.DataFrame(d) for d in _tables_equal_cases()[case])
+    ra, rb = ct.Table.from_pandas(a), ct.Table.from_pandas(b)
+    ta, tb = tt.Table.from_pandas(a, device="cpu"), tt.Table.from_pandas(b, device="cpu")
+    if case == "strings_on_two_dictionaries":  # one more dictionary value on one side
+        tb = tt.Table({"s": tt.Table.from_pandas(pd.DataFrame({"s": ["a", "b", "c", None]}),
+                                                 device="cpu")["s"].slice(1, 3)})
+        assert not np.array_equal(ta["s"].dictionary, tb["s"].dictionary)
+    assert t_eq(ta, tb) == r_eq(ra, rb)
+    assert t_eq(ta, ta) and r_eq(ra, ra)
+
+
+def test_tables_equal_reference_faults_are_pinned():
+    """The reference compares host values one by one: an f32 NaN (a
+    np.float32, not a float) and a null timestamp (NaT != NaT) make a table
+    unequal to itself. The port holds every missing cell equal."""
+    from cudf_tpu.core.table import tables_equal as r_eq
+    from cudf_tpu_torch.core.table import tables_equal as t_eq
+
+    for df in (pd.DataFrame({"f": np.array([1.0, np.nan], np.float32)}),
+               pd.DataFrame({"t": pd.to_datetime(["2024-01-01", None])})):
+        assert not r_eq(ct.Table.from_pandas(df), ct.Table.from_pandas(df))
+        assert t_eq(tt.Table.from_pandas(df, device="cpu"),
+                    tt.Table.from_pandas(df, device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["i32", "f64", "s", "ni", "nb", "ts"])
+def test_column_helpers_match_reference(name):
+    _, r, t = _pair("mixed")
+    rc, tc = r[name], t[name]
+    assert tc.nullable == rc.nullable
+    for n in (0, 7, 3000, 5000):
+        pd.testing.assert_series_equal(tc.head(n).to_pandas(), rc.head(n).to_pandas())
+    mask = np.arange(tc.capacity) % 3 != 0
+    rv = rc.with_validity(jnp.asarray(mask))
+    tv = tc.with_validity(torch.from_numpy(mask))
+    assert tv.nullable and tv.null_count == rv.null_count
+    pd.testing.assert_series_equal(tv.to_pandas(), rv.to_pandas())
+    rn, tn = rv.declare_non_null(), tv.declare_non_null()
+    assert not tn.nullable and tn.null_count == rn.null_count == 0
+    np.testing.assert_array_equal(tn.data.numpy(), tc.data.numpy())
+
+
+def test_struct_kind_matches_reference():
+    from cudf_tpu.core.dtypes import Kind as RK
+    from cudf_tpu_torch.core.dtypes import Kind as TK
+
+    assert TK.STRUCT == RK.STRUCT and TK.LIST == RK.LIST
+
+
+def test_prefetch_stats_fills_every_column_in_one_batch(monkeypatch):
+    _, r, t = _pair("mixed", seed=4)
+    cols = [t[n] for n in t.names]
+    copies, reads = [], []
+    cpu, tolist = torch.Tensor.cpu, torch.Tensor.tolist
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda self: copies.append(1) or cpu(self))
+    tstats.prefetch_stats(cols)
+    assert len(copies) == 1  # one host copy for every column's stats
+    assert all(c.stats is not None for c in cols if c.dtype.kind != "string")
+    monkeypatch.setattr(torch.Tensor, "tolist", lambda self: reads.append(1) or tolist(self))
+    for name in t.names:
+        assert astuple(tstats.compute_stats(t[name])) == astuple(
+            rstats.compute_stats(r[name])), name
+    assert not reads  # compute_stats found them cached
+
+
+@pytest.mark.parametrize("name", ["i8", "i16", "u8", "u16", "b", "ni", "nb", "s", "nf",
+                                  "intf"])
+def test_grouping_code_and_its_inverse_match_reference(name):
+    rng = np.random.default_rng(9)
+    df = _frame("mixed", 2000, rng)
+    df["intf"] = np.where(rng.random(2000) < 0.1, np.nan,
+                          rng.integers(-50, 50, 2000).astype(np.float64))
+    df["nf"] = pd.array(np.where(rng.random(2000) < 0.2, None,
+                                 rng.integers(0, 9, 2000).astype(np.float64)), "Float64")
+    r, t = ct.Table.from_pandas(df), tt.Table.from_pandas(df, device="cpu")
+    rst, tst = rstats.compute_stats(r[name]), tstats.compute_stats(t[name])
+    assert astuple(rst) == astuple(tst) and tst.code_width() is not None
+    rcode, rw = rstats.grouping_code(r[name], rst)
+    tcode, tw = tstats.grouping_code(t[name], tst)
+    n = t[name].length
+    assert tw == rw and tcode.dtype == torch.int32
+    np.testing.assert_array_equal(tcode.numpy()[:n], np.asarray(rcode)[:n])
+    rdata, rvalid = rstats.decode_group_code(rcode, r[name], rst)
+    tdata, tvalid = tstats.decode_group_code(tcode, t[name], tst)
+    assert (tvalid is None) == (rvalid is None)
+    np.testing.assert_array_equal(tdata.numpy()[:n], np.asarray(rdata)[:n])
+    if tvalid is not None:
+        np.testing.assert_array_equal(tvalid.numpy()[:n], np.asarray(rvalid)[:n])
+    # the inverse: valid rows decode to their own values
+    ok = t[name].valid_mask()[:n].numpy()
+    np.testing.assert_array_equal(tdata.numpy()[:n][ok], t[name].data.numpy()[:n][ok])

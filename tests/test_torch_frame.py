@@ -433,6 +433,18 @@ def test_unported_frame_methods_name_their_roadmap_item():
                                    ct.Series(dec).to_pandas())
 
 
+def test_dataframe_proxy_builds_the_frame_of_a_table():
+    from cudf_tpu.frame.series import DataFrameProxy as RProxy
+    from cudf_tpu_torch.frame.series import DataFrameProxy as TProxy
+
+    df = pd.DataFrame({"k": [3, 1, 2], "s": ["x", None, "y"]})
+    got = TProxy(tt.Table.from_pandas(df, device="cpu"))
+    want = RProxy(ct.Table.from_pandas(df))
+    assert isinstance(got, tt.DataFrame)
+    pd.testing.assert_frame_equal(got.to_pandas(), want.to_pandas())
+    pd.testing.assert_frame_equal(got.to_pandas(), df)
+
+
 def test_join_of_multiindex_with_other_levels_raises():
     """A MultiIndex joins only a MultiIndex with the same named levels; the
     frames never go through pandas to do otherwise."""

@@ -90,6 +90,27 @@ def test_release_on_frame_drop(budgets):
     assert rb.used == 0 and tb.used == 0
 
 
+def test_partition_outliving_its_frame_stays_counted(budgets):
+    """A partition still referenced after its frame goes keeps its table on
+    the device. The reference's ``PartitionedFrame.__del__`` releases it
+    from the budget anyway (a fault: its budget reads 0); the port releases
+    a partition only when the partition itself is collected."""
+    rb, tb = budgets
+    _, rpf, tpf = _frames(n_parts=2)
+    rkeep, tkeep = rpf._parts[-1], tpf._parts[-1]
+    for rp, tp in zip(rpf._parts, tpf._parts):
+        rp.get()
+        tp.get()
+    del rpf, tpf, rp, tp
+    gc.collect()
+    assert rkeep.table is not None and tkeep.table is not None
+    assert rb.used == 0
+    assert tb.used == tb._live[id(tkeep)][0] == thbm.table_device_bytes(tkeep.table) > 0
+    del tkeep
+    gc.collect()
+    assert tb.used == 0
+
+
 def test_oversized_single_partition_admitted(budgets):
     df = pd.DataFrame({"v": np.random.default_rng(1).normal(size=200_000)})  # 1.6 MB
     ref = RPF.from_pandas(df, 1)._parts[0].get()

@@ -176,6 +176,30 @@ def test_host_exchange_without_the_store_raises(monkeypatch):
         multihost.host_exchange([t, t])
 
 
+def test_host_exchange_adds_its_seconds(monkeypatch):
+    """``EXCHANGE_SECONDS`` sums each call's wall seconds, as the
+    reference's does (a scaling run reads it per rank), a call that raises
+    included."""
+    import datetime
+
+    import torch.distributed as tdist
+    from cudf_tpu.parallel import multihost as rmultihost
+
+    assert isinstance(rmultihost.EXCHANGE_SECONDS, float)
+    monkeypatch.setattr(multihost, "EXCHANGE_SECONDS", 0.0)
+    t = tt.Table.from_pandas(pd.DataFrame({"x": [1, 2, 3]}), device="cpu")
+    assert multihost.host_exchange([t])[0] is t
+    one = multihost.EXCHANGE_SECONDS
+    assert one > 0.0
+    store = tdist.TCPStore("127.0.0.1", _free_port(), 1, True, datetime.timedelta(seconds=30))
+    monkeypatch.setattr(multihost._STATE, "store", store)
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(multihost, "process_index", lambda: 0)
+    with pytest.raises(TimeoutError):
+        multihost.host_exchange([t, t], timeout_ms=300)
+    assert multihost.EXCHANGE_SECONDS >= one + 0.3
+
+
 def test_nccl_refuses_two_ranks_on_one_card():
     with pytest.raises(ValueError, match="would share the GPU"):
         multihost.check_one_rank_per_device(["box:0", "box:1", "box:0"])

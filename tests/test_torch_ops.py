@@ -283,3 +283,177 @@ def test_common_dtype_matches_reference(a):
         want = rdt.common_dtype(rdt.from_numpy(np.dtype(a)), rdt.from_numpy(np.dtype(b)))
         got = tdt.common_dtype(tdt.from_name(a), tdt.from_name(b))
         assert _dt(got) == _dt(want), (a, b)
+
+
+# ---------------------------------------------------------------------------
+# the shorthand binary ops, copying's reshape helpers, known-count compaction,
+# the segmented scan and the round-synchronous hash table
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div", "eq"])
+@pytest.mark.parametrize("lhs,rhs", [("@i32", "@i64"), ("@f32", "@f64"), ("@i64", 3)])
+def test_shorthand_binary_ops_match_reference(tables, op, lhs, rhs):
+    rt, pt = tables
+    want = getattr(rbin, op)(_operand(rt, lhs), _operand(rt, rhs))
+    got = getattr(tbin, op)(_operand(pt, lhs), _operand(pt, rhs))
+    assert _dt(got.dtype) == _dt(want.dtype)
+    rtol = 1e-6 if got.dtype.is_floating else 0.0
+    assert_series_equal(got.to_pandas(), want.to_pandas(), rtol)
+
+
+@pytest.mark.parametrize("cols", [["i64", "i32"], ["f32", "f32b"], ["b1", "b2"], ["s"],
+                                  ["t", "t"], ["i32", "i32", "i32"]])
+def test_interleave_columns_matches_reference(tables, cols):
+    rt, pt = tables
+    want = rcopy.interleave_columns(ct.Table({f"c{i}": rt[c] for i, c in enumerate(cols)}))
+    got = tcopy.interleave_columns(tt.Table({f"c{i}": pt[c] for i, c in enumerate(cols)}))
+    assert got.length == want.length == len(cols) * rt.num_rows
+    assert _dt(got.dtype) == _dt(want.dtype)
+    assert_series_equal(got.to_pandas(), want.to_pandas())
+
+
+def test_interleave_from_pydict():
+    want = rcopy.interleave_columns(ct.Table.from_pydict({"a": [1, 2], "b": [10, 20]}))
+    got = tcopy.interleave_columns(tt.Table.from_pydict({"a": [1, 2], "b": [10, 20]},
+                                                        device="cpu"))
+    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+    np.testing.assert_array_equal(got.to_numpy(), [1, 10, 2, 20])
+
+
+@pytest.mark.parametrize("col", ["b1", "b2", "i32", "f32"])
+def test_bools_to_mask_matches_reference(tables, col):
+    rt, pt = tables
+    want, got = rcopy.bools_to_mask(rt[col]), tcopy.bools_to_mask(pt[col])
+    assert got.null_count == want.null_count
+    assert_series_equal(got.to_pandas(), want.to_pandas())
+
+
+@pytest.mark.parametrize("cols", [["i32", "i64"], ["f32", "b2"], ["s", "t", "b1"],
+                                  list(_frame().columns)])
+def test_row_bit_count_matches_reference(tables, cols):
+    rt, pt = tables
+    want = rcopy.row_bit_count(rt.select(cols))
+    got = tcopy.row_bit_count(pt.select(cols))
+    assert _dt(got.dtype) == _dt(want.dtype)
+    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+
+
+@pytest.mark.parametrize("mask_col", ["b1", "b2"])
+def test_compact_known_count_matches_reference(tables, mask_col):
+    rt, pt = tables
+    n_out = int((rt[mask_col].to_pandas().fillna(False)).sum())
+    want = rsc.compact_known_count(rt, rt[mask_col], n_out)
+    got = tsc.compact_known_count(pt, pt[mask_col], n_out)
+    assert got.num_rows == want.num_rows == n_out
+    for name in rt.names:
+        assert_series_equal(got[name].to_pandas(), want[name].to_pandas())
+    for name in rt.names:
+        assert_series_equal(got[name].to_pandas(),
+                            tsc.apply_boolean_mask(pt, pt[mask_col])[name].to_pandas())
+
+
+def _combines():
+    import jax.numpy as jnp
+
+    return {
+        "add": (jnp.add, torch.add), "min": (jnp.minimum, torch.minimum),
+        "max": (jnp.maximum, torch.maximum), "mul": (jnp.multiply, torch.mul),
+        "keep_first": (lambda a, b: a, lambda a, b: a),
+    }
+
+
+@pytest.mark.parametrize("name", ["add", "min", "max", "mul", "keep_first"])
+@pytest.mark.parametrize("n", [1, 2, 7, 1000])
+def test_segmented_scan_matches_reference(name, n):
+    import jax.numpy as jnp
+    from cudf_tpu.ops import sortprim as rsp
+    from cudf_tpu_torch.ops import sortprim as tsp
+
+    rng = np.random.default_rng(n)
+    rc, tc = _combines()[name]
+    newseg = rng.random(n) < 0.2
+    for vals in (rng.integers(-3, 4, n), rng.integers(-3, 4, n).astype(np.float64)):
+        want = np.asarray(rsp.segmented_scan(jnp.asarray(vals), jnp.asarray(newseg), rc))
+        got = tsp.segmented_scan(torch.from_numpy(vals), torch.from_numpy(newseg), tc)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_segmented_scan_of_floats_within_rounding():
+    import jax.numpy as jnp
+    from cudf_tpu.ops import sortprim as rsp
+    from cudf_tpu_torch.ops import sortprim as tsp
+
+    rng = np.random.default_rng(0)
+    vals, newseg = rng.normal(size=5000), rng.random(5000) < 0.01
+    want = np.asarray(rsp.segmented_scan(jnp.asarray(vals), jnp.asarray(newseg), jnp.add))
+    got = tsp.segmented_scan(torch.from_numpy(vals), torch.from_numpy(newseg), torch.add)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
+
+
+def _hash_words(rng, n, nkeys, spread):
+    """The reference's packed words of ``nkeys`` int64 keys drawn from a pool
+    of ``spread`` values a key, as numpy uint32 arrays, and their width."""
+    from cudf_tpu.ops import hashgroup as rhash
+
+    df = pd.DataFrame({f"k{i}": rng.integers(0, 2**40, spread)[rng.integers(0, spread, n)]
+                       for i in range(nkeys)})
+    t = ct.Table.from_pandas(df)
+    words, width, _, _ = rhash.pack_key_words(rhash.equality_ops([t[c] for c in df]))
+    return [np.asarray(w) for w in words], width
+
+
+@pytest.mark.parametrize("nkeys,spread", [(1, 300), (2, 50), (3, 2000)])
+def test_hash_builds_and_lookup_are_bit_equal(nkeys, spread):
+    import jax.numpy as jnp
+    from cudf_tpu.ops import hashgroup as rhash
+
+    rng = np.random.default_rng(nkeys)
+    n = 3000
+    words, width = _hash_words(rng, n, nkeys, spread)
+    n = len(words[0])  # the padded capacity
+    active = (rng.random(n) < 0.9) & (np.arange(n) < 3000)
+    tbits, direct = rhash.table_bits(n, width)
+    assert thash.table_bits(n, width) == (tbits, direct) and not direct
+    assert thash.DIRECT_BITS == rhash.DIRECT_BITS == 23
+    rw = tuple(jnp.asarray(w) for w in words)
+    tw = [torch.from_numpy(w.astype(np.int64)) for w in words]
+    rslot, rrep = rhash.build_probe(rw, jnp.asarray(active), tbits)
+    tslot, trep = thash.build_probe(tw, torch.from_numpy(active), tbits)
+    np.testing.assert_array_equal(tslot.numpy(), np.asarray(rslot))
+    np.testing.assert_array_equal(trep.numpy(), np.asarray(rrep))
+    # probe rows: the build's rows shuffled, half of them with one word changed
+    perm = rng.permutation(n)
+    pw = [w[perm].copy() for w in words]
+    pw[-1][: n // 2] ^= 0x5A5A5A5A
+    pact = rng.random(n) < 0.95
+    want = rhash.lookup(tuple(jnp.asarray(w) for w in pw), jnp.asarray(pact), rrep, rw,
+                        tbits, False)
+    got = thash.lookup([torch.from_numpy(w).to(torch.int32) for w in pw],
+                       torch.from_numpy(pact), trep, tw, tbits, False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() < (1 << tbits)).sum() > n // 4
+
+
+@pytest.mark.parametrize("width", [1, 9, 23])
+def test_direct_build_and_lookup_are_bit_equal(width):
+    import jax.numpy as jnp
+    from cudf_tpu.ops import hashgroup as rhash
+
+    rng = np.random.default_rng(width)
+    n = 4000
+    w = rng.integers(0, 1 << width, n).astype(np.uint32)
+    active = rng.random(n) < 0.8
+    tbits, direct = rhash.table_bits(n, width)
+    assert thash.table_bits(n, width) == (tbits, direct) and direct
+    rslot, rrep = rhash.build_direct((jnp.asarray(w),), jnp.asarray(active), tbits)
+    tslot, trep = thash.build_direct([torch.from_numpy(w.astype(np.int64))],
+                                     torch.from_numpy(active), tbits)
+    np.testing.assert_array_equal(tslot.numpy(), np.asarray(rslot))
+    np.testing.assert_array_equal(trep.numpy(), np.asarray(rrep))
+    q = rng.integers(0, 1 << width, n).astype(np.uint32)
+    qact = rng.random(n) < 0.9
+    want = rhash.lookup((jnp.asarray(q),), jnp.asarray(qact), rrep, (jnp.asarray(w),),
+                        tbits, True)
+    got = thash.lookup([torch.from_numpy(q.astype(np.int64))], torch.from_numpy(qact),
+                       trep, [torch.from_numpy(w.astype(np.int64))], tbits, True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
