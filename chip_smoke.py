@@ -22,7 +22,15 @@ Phases (each prints a line; any failure raises and exits nonzero):
                kernel of the path must have launched;
   4. sort    — the code-sort lane on the first 16M rows (CUT_ROWS) of the
                same table: groupby l_orderkey sum/mean/min/max/var, checked
-               against pandas; the one-hot kernel must not launch;
+               against pandas; the one-hot kernel must not launch. Then
+               argmin and argmax of l_extendedprice at (a) those 16M rows by
+               l_orderkey and (b) phase 3's 60M rows by [l_returnflag,
+               l_linestatus]: fastgroup.fast_groupby, sortgroup.sort_groupby,
+               widegroup.wide_groupby and groupby.generic_groupby called
+               directly on the same input, each answer exact against pandas'
+               idxmin/idxmax and the lanes bit for bit against each other;
+               their warm times in turns (best of ARG_RUNS), the lane that
+               groupby_aggregate takes and the fastest lane's device profile;
   5. join    — TPC-H Q3's orders filter and lineitem join at SF10: orders
                (15M rows) -> binary_op(o_orderdate < 1995-03-15) ->
                apply_boolean_mask (~7.3M rows) -> join(lineitem[l_orderkey,
@@ -39,6 +47,9 @@ Phases (each prints a line; any failure raises and exits nonzero):
   7. kernels — the probe kernel against its plain version on the main
                join's own table (slot views, no packing) and words and on
                edge cases (both table layouts, a chain that wraps); times;
+               its bound from S, the slot reads of the main join's probe
+               (probe_reads walks each query's chain as the plain version
+               does);
   8. sort    — bench.py's sort shape at 60M rows: sort_by_key([k1 f64 with
                2% NaN, k2 f32]) carrying v, against a stable numpy lexsort,
                every column exact; first and warm times, device profile;
@@ -155,8 +166,9 @@ Phases (each prints a line; any failure raises and exits nonzero):
                cards (all on cuda:0 on one H100). Beside the phases whose
                data it reuses: after phase 3, dist_groupby of the README
                query over the 60M rows (null keys form groups; the groups
-               with both keys equal phase 3's answer; one-hot launches for
-               every shard that holds rows); after phase 5, the Q3
+               with both keys equal phase 3's answer; one one-hot launch
+               for each shard that holds rows, none for an empty one); after
+               phase 5, the Q3
                dist_join of the sharded 60M lineitem rows and filtered
                orders (equal to the oracle as a multiset; a probe launch a
                shard); after phase 8, dist_sort_values on [k1, k2
@@ -750,7 +762,7 @@ def sort_lane(gpu: str, tbl, df) -> None:
 
     kinds = ["sum", "mean", "min", "max", "var"]
     aggs = [AggSpec("l_extendedprice", kind, kind) for kind in kinds]
-    df = df.iloc[:CUT_ROWS]
+    full, df = df, df.iloc[:CUT_ROWS]
     t = Table({"l_orderkey": Column.from_numpy(df["l_orderkey"].to_numpy()),
                "l_extendedprice": tbl["l_extendedprice"].slice(0, CUT_ROWS)})
     before = k.groupby_sum_count.launches
@@ -808,6 +820,128 @@ def sort_lane(gpu: str, tbl, df) -> None:
         f"{used['mean']:.3f} for mean, {used['var']:.3f} for var)")
     log(f"sort: [{gpu}] warm groupby profile: "
         + device_breakdown(lambda: groupby_aggregate(t, ["l_orderkey"], aggs)))
+    before = k.groupby_sum_count.launches
+    arg_lanes(gpu, "a", t, df[["l_orderkey", "l_extendedprice"]], ["l_orderkey"])
+    arg_lanes(gpu, "b", tbl, full[KEYS + ["l_extendedprice"]], KEYS)
+    if k.groupby_sum_count.launches != before:
+        raise AssertionError("an argmin/argmax lane launched the one-hot kernel")
+
+
+ARG_RUNS = 2  # warm runs a lane, in turns: each lane once forward, then once backward
+ARG_LANES = ("fast_groupby", "sort_groupby", "wide_groupby", "generic_groupby")
+
+
+def _dispatched(fn):
+    """fn()'s result and the groupby lanes that answered inside it."""
+    from cudf_tpu_torch.ops import fastgroup, sortgroup, widegroup
+    from cudf_tpu_torch.ops import groupby as gb
+
+    answered = []
+    # the wide lane counts its own answers (wide_groupby.launches)
+    patched = [(fastgroup, "_onehot_groupby"), (sortgroup, "sort_groupby"),
+               (fastgroup, "fast_groupby"), (gb, "generic_groupby")]
+    inners = [getattr(m, n) for m, n in patched]
+    wide = widegroup.wide_groupby.launches
+
+    def spy(name, inner):
+        def lane(*a, **kw):
+            out = inner(*a, **kw)
+            if out is not None:
+                answered.append(name)
+            return out
+        return lane
+
+    try:
+        for (m, n), inner in zip(patched, inners):
+            setattr(m, n, spy(n, inner))
+        out = fn()
+    finally:
+        for (m, n), inner in zip(patched, inners):
+            setattr(m, n, inner)
+    answered += ["wide_groupby"] * (widegroup.wide_groupby.launches - wide)
+    return out, answered
+
+
+def arg_lanes(gpu: str, what: str, tbl, frame, keys) -> None:
+    """argmin and argmax of l_extendedprice by ``keys`` (dropna) through
+    each code-sort lane, called directly on ``tbl``: every answer exact
+    against pandas' idxmin/idxmax of ``frame`` (the same rows) in every
+    group with a value, ties to the first row, and the lanes bit for bit
+    against each other in every group; warm times in turns, host clock
+    ending in a synchronize; the lane groupby_aggregate takes; the fastest
+    lane's device profile."""
+    import torch
+
+    from cudf_tpu_torch import AggSpec, groupby_aggregate
+    from cudf_tpu_torch.ops import fastgroup, sortgroup, widegroup
+    from cudf_tpu_torch.ops import groupby as gb
+
+    t_start = time.perf_counter()
+    aggs = [AggSpec("l_extendedprice", "argmin", "argmin"),
+            AggSpec("l_extendedprice", "argmax", "argmax")]
+    fns = {"fast_groupby": fastgroup.fast_groupby, "sort_groupby": sortgroup.sort_groupby,
+           "wide_groupby": widegroup.wide_groupby, "generic_groupby": gb.generic_groupby}
+    lanes = {n: (lambda f=fns[n]: f(tbl, keys, aggs, True)) for n in ARG_LANES}
+    answers = {}
+    for name, fn in lanes.items():
+        out = fn()
+        if out is None:
+            raise AssertionError(f"argmin {what}: {name} refused argmin/argmax")
+        answers[name] = _host_columns(out)
+        del out
+    times = {n: [] for n in ARG_LANES}
+    for name in (list(ARG_LANES) + list(ARG_LANES)[::-1]) * (ARG_RUNS // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lanes[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    out, answered = _dispatched(lambda: groupby_aggregate(tbl, keys, aggs))
+    if len(answered) != 1:
+        raise AssertionError(f"argmin {what}: the dispatch's lanes {answered}")
+    answers["groupby_aggregate"] = _host_columns(out)
+    del out
+    first = answers["fast_groupby"]
+    for name, got in answers.items():
+        for col, (w, wn) in first.items():
+            g, gn = got[col]
+            if not (np.array_equal(g, w) and np.array_equal(gn, wn)):
+                raise AssertionError(f"argmin {what}: {name}'s {col} differs from "
+                                     f"fast_groupby's")
+    p = frame["l_extendedprice"]
+    t0 = time.perf_counter()
+    want = frame[p.notna()].groupby(keys, sort=True)["l_extendedprice"].agg(
+        ["idxmin", "idxmax"])
+    oracle_s = time.perf_counter() - t0
+    has = ~first["argmin"][1]
+    for i, key in enumerate(keys):
+        level = want.index.get_level_values(i) if len(keys) > 1 else want.index
+        if not np.array_equal(first[key][0][has], level.to_numpy(np.int64)):
+            raise AssertionError(f"argmin {what}: the groups with a value differ from "
+                                 f"pandas' ({key})")
+    for col, ref in (("argmin", "idxmin"), ("argmax", "idxmax")):
+        if not np.array_equal(first[col][0][has], want[ref].to_numpy(np.int64)):
+            raise AssertionError(f"argmin {what}: {col} differs from pandas' {ref}")
+    best = {n: min(ts) for n, ts in times.items()}
+    spread = abs(times["fast_groupby"][0] - times["fast_groupby"][1])
+    lead = best["sort_groupby"] - best["fast_groupby"]
+    line = ", ".join(f"{n} {' / '.join(f'{t:.2f}' for t in ts)} ms"
+                     for n, ts in times.items())
+    log(f"argmin {what}: [{gpu}] {tbl.num_rows} rows by {keys} -> {len(first['argmin'][0])} "
+        f"groups; argmin and argmax of l_extendedprice equal pandas' idxmin/idxmax in "
+        f"all {int(has.sum())} groups with a value, and the {len(answers)} answers "
+        f"(4 lanes and the dispatch) equal bit for bit in every group; "
+        f"{time.perf_counter() - t_start:.1f} s so far, pandas {oracle_s:.1f} s of it "
+        f"(host clock)")
+    log(f"argmin {what}: [{gpu}] warm, host clock ending in a synchronize, in turns: "
+        f"{line}")
+    log(f"argmin {what}: [{gpu}] fast_groupby leads sort_groupby by {lead:.2f} ms "
+        f"(best of {ARG_RUNS}) against its own spread {spread:.2f} ms: "
+        f"{'beats it' if lead > spread else 'does not beat it'}; fastest lane "
+        f"{min(best, key=best.get)}; groupby_aggregate takes {answered[0]}")
+    winner = min(best, key=best.get)
+    log(f"argmin {what}: [{gpu}] {winner} device breakdown: "
+        + device_breakdown(lanes[winner]))
 
 
 # ---------------------------------------------------------------- phase 12
@@ -1241,6 +1375,35 @@ def probe_edge_cases(ht, dev) -> int:
     return len(cases)
 
 
+def probe_reads(table, q1, q2) -> tuple:
+    """(S, sectors): the slot reads of probe_table(*table, q1, q2), each
+    query's chain walked as probe_table_plain walks it (up to the first
+    match or vacant slot, at most MAX_PROBE steps), and the distinct 32 B
+    sectors those reads touch along each chain."""
+    import torch
+
+    from cudf_tpu_torch.kernels import hashtable as ht
+
+    tk1, tk2, payload = table
+    m = tk1.shape[0]
+    base = tk1.data_ptr() // 16  # the slot tensor's first slot, in 16 B units
+    h = ht._mix(q1, q2)
+    done = torch.zeros(q1.shape, dtype=torch.bool, device=q1.device)
+    reads = sectors = 0
+    prev = None
+    for i in range(ht.MAX_PROBE):
+        slot = (h + i) & (m - 1)
+        sector = (base + slot.to(torch.int64)) >> 1
+        reads += int((~done).sum().item())
+        fresh = ~done if prev is None else ~done & (sector != prev)
+        sectors += int(fresh.sum().item())
+        p = payload[slot]
+        vacant = p == ht.EMPTY
+        done |= vacant | ((tk1[slot] == q1) & (tk2[slot] == q2))
+        prev = sector
+    return reads, sectors
+
+
 def probe_vs_plain(gpu: str, li, filtered) -> dict:
     import torch
 
@@ -1280,13 +1443,21 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
     probe_keys = packed(q1, q2)
     library_ms = cuda_ms(lambda: torch.searchsorted(build_keys, probe_keys))
     m, n = table[0].shape[0], q1.shape[0]
-    nbytes = 12 * m + 12 * n  # table once, two query words and the result
-    ops = 12 * n              # hash and one probe's compares, 32-bit ALU ops
+    reads, sectors = probe_reads(table, q1, q2)
+    # each slot read is a 16 B load at a hashed slot of a table far past the
+    # 50 MB L2, so it moves at least one 32 B sector from HBM; plus two
+    # query words read and the result written
+    nbytes = 12 * n + 32 * reads
+    streamed = 12 * m + 12 * n  # the table read once in order: a looser limit
+    ops = 12 * reads          # hash and one probe step's compares, 32-bit ALU ops
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
     log(f"kernels: [{gpu}] hashtable_probe N={n} queries, m={m} slots for {n_build} "
         f"build rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
-        f"3.35 TB/s)")
+        f"3.35 TB/s: 12·N + 32·S for S = {reads} slot reads, S/N = {reads / n:.4f}; "
+        f"{sectors} distinct 32 B sectors along the chains, {sectors / n:.4f} a query); "
+        f"streamed lower limit 12·m + 12·N {streamed / 1e9:.4f} GB, "
+        f"{streamed / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return {"name": "hashtable_probe", "route": "cuda",
             "source": "cudf_tpu_torch/kernels/csrc/hashtable_probe.cu",
             "replaces": "cudf_tpu/kernels/hashtable.py:83",
@@ -3385,7 +3556,7 @@ def dist_readme(gpu: str, tbl, readme_out) -> None:
     body, null keys form groups). The groups with both keys equal phase 3's
     answer (keys and counts exact, sums and means rtol 1e-5, the kernel's
     f32 partial sums), every row counted; the one-hot kernel launched once
-    for each shard that holds rows."""
+    for each shard that holds rows and never for an empty one."""
     from cudf_tpu_torch import AggSpec, groupby_aggregate
     from cudf_tpu_torch.kernels import hashtable as ht
     from cudf_tpu_torch.kernels import onehot_groupby as oh
@@ -3407,10 +3578,10 @@ def dist_readme(gpu: str, tbl, readme_out) -> None:
     oh.groupby_sum_count.launches = 0
     ht.probe_table.launches = 0
     out, warm_s = _dist_run(mesh, lambda: spmd.dist_groupby(st, KEYS, aggs))
-    launches = oh.groupby_sum_count.launches // 2
-    if launches < holding:
-        raise AssertionError(f"dist groupby: {launches} one-hot launches a run for "
-                             f"{holding} shards that hold rows")
+    if oh.groupby_sum_count.launches != 2 * holding:
+        raise AssertionError(f"dist groupby: {oh.groupby_sum_count.launches} one-hot "
+                             f"launches in two runs for {holding} shards that hold rows")
+    launches = holding
     if ht.probe_table.launches:
         raise AssertionError("dist groupby launched the probe kernel")
     DIST["onehot_launches"] += launches

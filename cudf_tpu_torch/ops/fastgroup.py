@@ -358,7 +358,9 @@ def _at_group(arr: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
 
 
 def fast_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool) -> Optional[Table]:
-    """Code-sort groupby; None when this plan doesn't apply."""
+    """Code-sort groupby; None when this plan doesn't apply. The
+    reference's lane for argmin/argmax; off the port's dispatch, where
+    ``sortgroup.sort_groupby`` answers every kind this takes."""
     if not all(s.kind in _SUPPORTED for s in aggs):
         return None
     kcols = [tbl[k] for k in keys]
@@ -469,7 +471,8 @@ def _onehot_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool,
                     plan, tbits: int) -> Table:
     """One kernel pass (kernels/onehot_groupby.py) computes every slot's
     value sum and counts; the occupied slots, in slot order (= key order),
-    become the groups. A value column with nulls goes in as two columns,
+    become the groups. A table with no rows launches nothing: every slot
+    is empty. A value column with nulls goes in as two columns,
     ``where(valid, v, 0)`` and ``valid``, so the kernel returns the valid
     sum, the valid count and the row count (V = 2; ``where``, as a product
     would keep a NaN under a null); one without nulls as itself (V = 1),
@@ -490,7 +493,10 @@ def _onehot_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool,
     else:
         vals = torch.stack([torch.where(vcol.validity, vcol.data, 0.0),
                             vcol.validity.to(torch.float32)], 1)
-    out = groupby_sum_count(gid, vals, active.to(torch.float32), T)
+    if kcols[0].length == 0:  # padding rows only
+        out = vals.new_zeros((T, vals.shape[1] + 1), dtype=torch.float64)
+    else:
+        out = groupby_sum_count(gid, vals, active.to(torch.float32), T)
     grp_slot = torch.nonzero(out[:, -1] > 0.5).squeeze(1)
     n_groups = grp_slot.shape[0]
     g = out[grp_slot]

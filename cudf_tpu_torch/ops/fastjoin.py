@@ -18,7 +18,8 @@ is the hash table of ``kernels/hashtable.py``:
      than active rows). Semi and anti joins only ask whether a key
      exists, so duplicates are fine;
   5. ``probe_table`` with the left side's words: a left row matches when
-     the payload is a row id and the row is active;
+     the payload is a row id and the row is active (no launch when a side
+     has no rows: its padding would only find ``EMPTY``);
   6. inner: the matched left rows in left-row order, each right column
      gathered at the payload; left: every left row passes through as it
      is, the right columns gathered and null where there is no match;
@@ -98,7 +99,10 @@ def _match(probe: Table, build: Table, probe_on: Sequence[str],
     p_words, table, n_build = built
     if distinct and int((table[2] != ht.EMPTY).sum().item()) != n_build:
         return None  # duplicate build keys: the general lane expands them
-    hit = ht.probe_table(*table, *p_words)
+    if probe.num_rows and build.num_rows:
+        hit = ht.probe_table(*table, *p_words)
+    else:  # padding rows only on a side: nothing can match, nothing launches
+        hit = torch.full_like(p_words[0], ht.EMPTY)
     return hit, (hit >= 0) & _active(pcols, nulls_equal)
 
 

@@ -8,11 +8,13 @@ Dispatch, in order:
      takes its shared-memory single-pass aggregation when cardinality is
      small (compute_single_pass_aggs.cuh). The reference gates this lane
      behind an opt-in switch and reaches its sort lane first;
-  2. the single-word code sort (``sortgroup.sort_groupby``);
-  3. the code sort with argmin/argmax (``fastgroup.fast_groupby``);
-  4. the wide-key lane (``widegroup.wide_groupby``): sparse 64-bit ids and
+  2. the single-word code sort (``sortgroup.sort_groupby``), every kind
+     the code-sort aggregates take, argmin/argmax included. The reference
+     answers those two from a third lane, ``fastgroup.fast_groupby``; the
+     port keeps that function, off the dispatch;
+  3. the wide-key lane (``widegroup.wide_groupby``): sparse 64-bit ids and
      full-range floats in at most three packed words, no range assumption;
-  5. the generic engine below (``generic_groupby``): a stable
+  4. the generic engine below (``generic_groupby``): a stable
      lexicographic sort of row codes, then per-segment reductions, for
      every key and aggregation.
 
@@ -90,9 +92,6 @@ def aggregate_in_memory(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec]
     sg = sort_groupby(tbl, keys, aggs, dropna_keys)
     if sg is not None:
         return sg
-    fast = fastgroup.fast_groupby(tbl, keys, aggs, dropna_keys)
-    if fast is not None:
-        return fast
     wide = wide_groupby(tbl, keys, aggs, dropna_keys)
     if wide is not None:
         return wide

@@ -4,8 +4,9 @@
      integers keep exact Python-int bounds), packed into ONE word of <= 63
      code bits under a leading inactive-sentinel bit, so sparse 64-bit keys
      fit;
-  2. one stable sort by that word (as int64 with the top bit flipped, so
-     signed order is the word's unsigned order);
+  2. one stable sort by that word, as int64: below 63 code bits the word
+     is non-negative and sorts as it is; at 63 its top bit is flipped, so
+     that signed order is the word's unsigned order;
   3. sums, counts and M2 are per-group sums over the sorted rows, each
      adding only its own group's rows in a fixed order, and the order
      statistics per-group reductions (``fastgroup.aggregate_sorted``);
@@ -32,10 +33,10 @@ from ..core.table import Table
 from . import fastgroup
 from .fastgroup import _I64_MIN
 
-_SUPPORTED = {
-    "sum", "product", "min", "max", "count", "size", "any", "all", "mean",
-    "sum_of_squares", "first", "last", "nth", "var", "std", "m2",
-}
+# every kind of fastgroup.aggregate_sorted, argmin/argmax included (the
+# reference leaves those two to fastgroup.fast_groupby, which sorts the same
+# rows by a narrower word and was no faster on the H100)
+_SUPPORTED = fastgroup._SUPPORTED
 
 MAX_CODE_BITS = 63  # one 64-bit word minus the inactive-sentinel bit
 
@@ -60,11 +61,16 @@ def plan_wide(kcols: Sequence[Column]):
 
 
 def _make_word(kcols: Sequence[Column], plan, dropna: bool):
-    """(word, active): int64 [sentinel:1][packed codes:tbits] with the top
-    bit flipped; the sentinel marks padding / dropped-null rows (sort last)."""
+    """(word, flip): int64 [sentinel:1][packed codes:tbits] XOR ``flip``;
+    the sentinel marks padding / dropped-null rows (sort last). ``flip`` is
+    INT64_MIN only when the sentinel needs the top bit (tbits = 63), else 0,
+    which spares a pass over the word on either side of the sort."""
     slot, active = fastgroup._make_key(kcols, plan, dropna)
     tbits = sum(w for _, w in plan)
-    return torch.where(active, slot ^ _I64_MIN, (1 << tbits) + _I64_MIN), active
+    flip = _I64_MIN if tbits == MAX_CODE_BITS else 0
+    if flip:
+        slot = slot ^ flip
+    return torch.where(active, slot, (1 << tbits) + flip), flip
 
 
 def sort_groupby(tbl: Table, keys: Sequence[str], aggs,
@@ -77,11 +83,10 @@ def sort_groupby(tbl: Table, keys: Sequence[str], aggs,
     if plan is None:
         return None
     tbits = sum(w for _, w in plan)
-    word, _ = _make_word(kcols, plan, dropna_keys)
+    word, flip = _make_word(kcols, plan, dropna_keys)
     skey, pos = torch.sort(word, stable=True)
-    act = skey < (1 << tbits) + _I64_MIN
+    act = skey < (1 << tbits) + flip
     out, starts, n_groups = fastgroup.aggregate_sorted(
         tbl, keys, aggs, pos, act, fastgroup.new_groups(skey, act))
-    out.update(fastgroup.decode_keys(keys, kcols, plan, (skey ^ _I64_MIN)[starts],
-                                     n_groups))
+    out.update(fastgroup.decode_keys(keys, kcols, plan, skey[starts] ^ flip, n_groups))
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})

@@ -268,24 +268,136 @@ def test_fast_groupby_matches_reference(monkeypatch, kind, param):
 
 @pytest.mark.parametrize("kind", ["argmin", "argmax"])
 def test_dispatch_answers_argmin_argmax_from_fast_groupby(monkeypatch, kind):
-    """argmin/argmax pass the one-hot and single-word sort lanes by and are
-    answered by fast_groupby, not by the generic engine."""
+    """argmin/argmax pass the one-hot lane by and are answered by the
+    single-word sort lane (which took them over from fastgroup.fast_groupby,
+    now off the dispatch), not by the generic engine."""
     answered = []
-    inner = tfast.fast_groupby
+    inner = tsort.sort_groupby
 
     def spy(*a, **k):
         out = inner(*a, **k)
         answered.append(out is not None)
         return out
 
-    monkeypatch.setattr(tfast, "fast_groupby", spy)
+    monkeypatch.setattr(tsort, "sort_groupby", spy)
+    fast = Spy(monkeypatch, tfast, "fast_groupby")
+    generic = Spy(monkeypatch, tgb, "generic_groupby")
     df = _agg_frame(seed=10)
     raggs, taggs = _aggs([("i", kind, "out")])
     want = rgb.groupby_aggregate(ct.Table.from_pandas(df), ["g", "s"], raggs).to_pandas()
     got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["g", "s"],
                                 taggs).to_pandas()
-    assert answered == [True]
+    assert answered == [True] and fast.calls == 0 and generic.calls == 0
     assert_same(got, want)
+
+
+def _arg_frame(layout, seed, n=2000):
+    """Keys and an f64 value column ``x`` for argmin/argmax: ``nan`` puts
+    NaN in some rows and in every row of one group, ``ties`` draws x from
+    three values."""
+    rng = np.random.default_rng(seed)
+    g = pd.arrays.IntegerArray(rng.integers(0, 30, n), rng.random(n) < 0.05)
+    x = np.round(rng.normal(size=n), 3)
+    if layout == "ties":
+        x = rng.integers(0, 3, n).astype(np.float64)
+    if layout == "nan":
+        x[rng.random(n) < 0.1] = np.nan
+        x[(g == 7).to_numpy(bool, na_value=False)] = np.nan
+    cols = {"g": g, "x": _nullable(rng, x, 0.1)} if layout != "nan" else {"g": g, "x": x}
+    if layout == "two_keys":
+        cols["h"] = rng.integers(0, 4, n).astype(np.uint8)
+    if layout == "string":
+        s = np.array(["p", "q", "r", "s"], object)[rng.integers(0, 4, n)]
+        s[rng.random(n) < 0.05] = None
+        cols = {"s": s, "x": cols["x"]}
+    keys = {"two_keys": ["g", "h"], "string": ["s"]}.get(layout, ["g"])
+    return pd.DataFrame(cols), keys
+
+
+def _raw(tbl, to_numpy):
+    """{column: (data, validity)} of a Table's rows, data under nulls
+    included (a group with no value holds 2147483647 there)."""
+    n = tbl.num_rows
+    return {name: (to_numpy(c.data)[:n],
+                   None if c.validity is None else to_numpy(c.validity)[:n])
+            for name, c in tbl}
+
+
+@pytest.mark.parametrize("layout", ["nullable_int", "two_keys", "string", "nan", "ties"])
+@pytest.mark.parametrize("dropna", [True, False])
+@pytest.mark.parametrize("kind", ["argmin", "argmax"])
+def test_sort_lane_argmin_argmax_equal_the_reference_fast_lane(kind, dropna, layout):
+    """The single-word sort lane answers argmin/argmax with the reference's
+    fast_groupby's answer on the same seeded frame, bit for bit: keys,
+    group order, ties to the first row, nulls and the data under them."""
+    df, keys = _arg_frame(layout, seed=20)
+    raggs, taggs = _aggs([("x", kind, "out")])
+    want = rfast.fast_groupby(ct.Table.from_pandas(df), keys, raggs, dropna)
+    got = tsort.sort_groupby(tt.Table.from_pandas(df, device="cpu"), keys, taggs, dropna)
+    assert want is not None and got is not None
+    w, g = _raw(want, np.asarray), _raw(got, lambda t: t.numpy())
+    assert list(g) == list(w)
+    for name in w:
+        np.testing.assert_array_equal(g[name][0], w[name][0], err_msg=name)
+        assert (g[name][1] is None) == (w[name][1] is None), name
+        if w[name][1] is not None:
+            np.testing.assert_array_equal(g[name][1], w[name][1], err_msg=name)
+
+
+@pytest.mark.parametrize("bits", [62, 63])
+def test_sort_lane_word_below_and_at_63_bits(monkeypatch, bits):
+    """Two int64 keys whose codes fill 62 bits (the word sorts as it is) or
+    63 (its top bit flipped for the sort): the sort lane answers, equal to
+    the reference's groupby_aggregate in every column and null."""
+    rng = np.random.default_rng(21)
+    n = 3000
+    hi = np.r_[0, (1 << 31) - 1, rng.integers(0, 1 << 31, 40)]
+    lo = np.r_[0, (1 << (bits - 31)) - 1, rng.integers(0, 1 << (bits - 31), 40)]
+    df = pd.DataFrame({"a": hi[rng.integers(0, len(hi), n)],
+                       "b": lo[rng.integers(0, len(lo), n)],
+                       "x": _nullable(rng, np.round(rng.normal(size=n), 2), 0.1)})
+    raggs, taggs = _aggs([("x", "sum", "s"), ("x", "min", "lo"), ("x", "argmax", "am"),
+                          ("", "size", "n")])
+    t = tt.Table.from_pandas(df, device="cpu")
+    assert sum(w for _, w in tsort.plan_wide([t["a"], t["b"]])) == bits
+    spy = Spy(monkeypatch, tsort, "sort_groupby")
+    got = tgb.groupby_aggregate(t, ["a", "b"], taggs).to_pandas()
+    want = rgb.groupby_aggregate(ct.Table.from_pandas(df), ["a", "b"], raggs).to_pandas()
+    assert spy.calls == 1
+    assert_same(got, want)
+
+
+EMPTY_CASES = {"no_rows": 0, "dropped_to_no_rows": 0, "no_active_key": 1}
+
+
+@pytest.mark.parametrize("case", sorted(EMPTY_CASES))
+def test_onehot_lane_launches_nothing_on_no_rows(monkeypatch, case):
+    """A table with no rows (capacity 128) takes the one-hot plan and
+    returns the lane's empty result with no accumulator call; its columns
+    and dtypes equal the reference's groupby_aggregate of the same frame.
+    A table with rows but no active key (every key null, dropna) still
+    calls the accumulator once."""
+    from cudf_tpu_torch.kernels import onehot_groupby as tkernel
+
+    n = 0 if case == "no_rows" else 50
+    df = pd.DataFrame({
+        "a": pd.arrays.IntegerArray(np.ones(n, np.int32), np.ones(n, bool)),
+        "b": pd.arrays.IntegerArray(np.zeros(n, np.int32), np.zeros(n, bool)),
+        "v": np.arange(n, dtype=np.float32)})
+    raggs, taggs = _aggs(README_AGGS)
+    r, t = ct.Table.from_pandas(df), tt.Table.from_pandas(df, device="cpu")
+    if case == "dropped_to_no_rows":
+        r, t = rsc.drop_nulls(r), tsc.drop_nulls(t)
+    assert t.num_rows == (n if case == "no_active_key" else 0)
+    assert t["a"].capacity == 128
+    onehot = Spy(monkeypatch, tfast, "_onehot_groupby")
+    kernel = Spy(monkeypatch, tkernel, "groupby_sum_count")
+    got = tgb.groupby_aggregate(t, ["a", "b"], taggs).to_pandas()
+    want = rgb.groupby_aggregate(r, ["a", "b"], raggs).to_pandas()
+    assert onehot.calls == 1 and kernel.calls == EMPTY_CASES[case]
+    assert len(got) == 0
+    assert list(got.columns) == list(want.columns)
+    assert list(got.dtypes) == list(want.dtypes)
 
 
 def test_entry_step_matches_reference():
@@ -354,14 +466,15 @@ def test_a_small_group_keeps_its_precision_after_a_large_one(monkeypatch, lane):
                        "v": np.r_[1e6 + rng.random(n), 1.2345678901234567]})
     aggs = [("sum", "sum"), ("mean", "mean"), ("var", "var")]
     specs = [tgb.AggSpec("v", kind, out) for kind, out in aggs]
-    if lane == "fast":  # the code-sort lane that also answers argmin/argmax
+    tbl = tt.Table.from_pandas(df, device="cpu")
+    if lane == "fast":  # the reference's code-sort lane, off the dispatch: called directly
         specs.append(tgb.AggSpec("v", "argmin", "am"))
         aggs.append(("idxmin", "am"))
-    spy = Spy(monkeypatch, tsort if lane == "sort" else tfast,
-              "sort_groupby" if lane == "sort" else "fast_groupby")
-    got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["k"],
-                                specs).to_pandas()
-    assert spy.calls == 1
+        got = tfast.fast_groupby(tbl, ["k"], specs, True).to_pandas()
+    else:
+        spy = Spy(monkeypatch, tsort, "sort_groupby")
+        got = tgb.groupby_aggregate(tbl, ["k"], specs).to_pandas()
+        assert spy.calls == 1
     want = df.groupby("k")["v"].agg([kind for kind, _ in aggs])
     big = df.v.to_numpy()[:n]
     want.loc[0, "var"] = ((big - big.mean()) ** 2).sum() / (n - 1)

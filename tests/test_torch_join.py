@@ -253,6 +253,23 @@ def test_empty_sides_match_reference():
                             r_join(rr, rl, ["k"], ["k"], how).to_pandas())
 
 
+@pytest.mark.parametrize("empty", ["probe", "build"])
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
+def test_empty_side_takes_the_hash_lane_without_a_probe(monkeypatch, how, empty):
+    """A side with no rows (capacity 128 of padding) still takes the hash
+    lane, and the probe is not called: nothing can match. The answer
+    equals the reference's."""
+    none = pd.DataFrame({"k": np.array([], np.int64), "v": np.array([], np.float64)})
+    some = pd.DataFrame({"k": [1, 2, 2], "v": [1.0, 2.0, 3.0]})
+    ldf, rdf = (none, some.iloc[:2]) if empty == "probe" else (some, none)
+    (rl, rr), (pl, pr) = _tables(ldf, rdf)
+    probe = Spy(monkeypatch, tht, "probe_table")
+    general = Spy(monkeypatch, tjoin, "_probe")
+    got = tt.join(pl, pr, ["k"], ["k"], how).to_pandas()
+    assert probe.calls == 0 and general.calls == 0
+    assert_frames_equal(got, r_join(rl, rr, ["k"], ["k"], how).to_pandas())
+
+
 def test_categorical_keys_are_not_ported_yet():
     """Categorical keys are ported now (core/categorical.py): a join on
     categoricals declared in two orders equals the reference's."""

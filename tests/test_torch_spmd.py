@@ -233,6 +233,35 @@ def test_dist_groupby_keeps_the_null_key_group(meshes):
         _same_rows(got, other, ["k", "s", "n"], rtol=1e-9)
 
 
+def test_dist_groupby_calls_the_accumulator_only_on_shards_with_rows(meshes, monkeypatch):
+    """Four key values on 8 shards leave at least four shards empty after
+    the shuffle: the one-hot lane's accumulator runs once for each shard
+    that holds rows, and the groups equal groupby_aggregate of the whole
+    table (f32 sums at rtol 1e-6: one f32 rounding of each group's total)."""
+    from cudf_tpu_torch.kernels import onehot_groupby as tkernel
+
+    rng = np.random.default_rng(4)
+    n = 2000
+    pairs = np.array([[0, 0], [1, 0], [1, 1], [2, 0]], np.int32)[rng.integers(0, 4, n)]
+    df = pd.DataFrame({"a": pairs[:, 0], "b": pairs[:, 1],
+                       "v": rng.uniform(900, 105000, n).astype(np.float32)})
+    _, tst = _sharded(df, meshes)
+    specs = [TAgg("v", "sum", "s"), TAgg("v", "mean", "m"), TAgg("v", "count", "c"),
+             TAgg("", "size", "n")]
+    holding = sum(k > 0 for k in tspmd.shuffle_by_key(tst, ["a", "b"])[0].lengths)
+    assert holding <= 4
+    calls = []
+    inner = tkernel.groupby_sum_count
+    monkeypatch.setattr(tkernel, "groupby_sum_count",
+                        lambda *a, **k: calls.append(1) or inner(*a, **k))
+    got = tspmd.dist_groupby(tst, ["a", "b"], specs).concat_to_table().to_pandas()
+    assert len(calls) == holding
+    whole = tt.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["a", "b"],
+                                 specs).to_pandas()
+    assert len(calls) == holding + 1 and len(whole) == 4
+    _same_rows(got, whole, ["a", "b", "c", "n", "s", "m"], rtol=1e-6)
+
+
 # ------------------------------------------------------------------ joins
 def _mk(rng, n=2000, with_strings=False, dup_right=1):
     """tests/test_spmd_round3.py's join inputs."""
