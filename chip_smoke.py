@@ -47,9 +47,9 @@ Phases (each prints a line; any failure raises and exits nonzero):
   7. kernels — the probe kernel against its plain version on the main
                join's own table (slot views, no packing) and words and on
                edge cases (both table layouts, a chain that wraps); times;
-               its bound from S, the slot reads of the main join's probe
-               (probe_reads walks each query's chain as the plain version
-               does);
+               its bound from the distinct 32 B sectors along the main
+               join's probe chains, beside S, the slot reads (probe_reads
+               walks each query's chain as the plain version does);
   8. sort    — bench.py's sort shape at 60M rows: sort_by_key([k1 f64 with
                2% NaN, k2 f32]) carrying v, against a stable numpy lexsort,
                every column exact; first and warm times, device profile;
@@ -937,7 +937,8 @@ def arg_lanes(gpu: str, what: str, tbl, frame, keys) -> None:
         f"{line}")
     log(f"argmin {what}: [{gpu}] fast_groupby leads sort_groupby by {lead:.2f} ms "
         f"(best of {ARG_RUNS}) against its own spread {spread:.2f} ms: "
-        f"{'beats it' if lead > spread else 'does not beat it'}; fastest lane "
+        f"{'beats it' if lead > spread else 'does not beat it'} (fast_groupby is "
+        f"sort_groupby behind the reference's refusal check); fastest lane "
         f"{min(best, key=best.get)}; groupby_aggregate takes {answered[0]}")
     winner = min(best, key=best.get)
     log(f"argmin {what}: [{gpu}] {winner} device breakdown: "
@@ -1444,18 +1445,20 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
     library_ms = cuda_ms(lambda: torch.searchsorted(build_keys, probe_keys))
     m, n = table[0].shape[0], q1.shape[0]
     reads, sectors = probe_reads(table, q1, q2)
-    # each slot read is a 16 B load at a hashed slot of a table far past the
-    # 50 MB L2, so it moves at least one 32 B sector from HBM; plus two
-    # query words read and the result written
-    nbytes = 12 * n + 32 * reads
+    # each chain starts at a hashed slot of a table far past the 50 MB L2,
+    # so every 32 B sector it touches comes from HBM; a next slot in the
+    # same sector (two slots a sector) moves nothing new. Plus two query
+    # words read and the result written
+    nbytes = 12 * n + 32 * sectors
     streamed = 12 * m + 12 * n  # the table read once in order: a looser limit
     ops = 12 * reads          # hash and one probe step's compares, 32-bit ALU ops
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
     log(f"kernels: [{gpu}] hashtable_probe N={n} queries, m={m} slots for {n_build} "
         f"build rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
-        f"3.35 TB/s: 12·N + 32·S for S = {reads} slot reads, S/N = {reads / n:.4f}; "
-        f"{sectors} distinct 32 B sectors along the chains, {sectors / n:.4f} a query); "
+        f"3.35 TB/s: 12·N + 32·sectors for {sectors} distinct 32 B sectors along the "
+        f"chains, {sectors / n:.4f} a query; S = {reads} slot reads, S/N = "
+        f"{reads / n:.4f}, 12·N + 32·S {(12 * n + 32 * reads) / 1e9:.4f} GB); "
         f"streamed lower limit 12·m + 12·N {streamed / 1e9:.4f} GB, "
         f"{streamed / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return {"name": "hashtable_probe", "route": "cuda",

@@ -22,11 +22,12 @@
 // flight instead of one. The grid is a grid-stride loop sized from the SM
 // count and the kernel's occupancy, read at run time.
 //
-// Bound: memory. The function must read the table once (12 B a slot: two u32
-// key words and an i32 payload), each query's two words (8 B) and write its
-// result (4 B): 12·m + 12·N bytes, 1.21 GB at m = 2^25 and N = 2^26, 0.36 ms
-// at the H100 SXM's 3.35 TB/s. What it pays beyond that is the random sector
-// per probe step: about 1.1 sectors a query at the Q3 join's 22% load.
+// Bound: memory. The function reads each query's two words (8 B), writes its
+// result (4 B), and moves every 32 B sector its chain touches from HBM, since
+// the chain starts at a hashed slot of a table past the L2: 12·N + 32·sectors
+// bytes. At the Q3 join's 22% load that is about 1.1 sectors a query, 3.17 GB
+// and 0.95 ms at N = 2^26 and the H100 SXM's 3.35 TB/s. Reading the table
+// once in order (12·m + 12·N bytes, 0.36 ms at m = 2^25) is a looser limit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

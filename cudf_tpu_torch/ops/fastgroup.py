@@ -359,24 +359,18 @@ def _at_group(arr: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
 
 def fast_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool) -> Optional[Table]:
     """Code-sort groupby; None when this plan doesn't apply. The
-    reference's lane for argmin/argmax; off the port's dispatch, where
-    ``sortgroup.sort_groupby`` answers every kind this takes."""
+    reference's lane for argmin/argmax, off the port's dispatch: it refuses
+    where the reference refuses (codes wider than 62 bits less the row
+    position's), then answers from ``sortgroup.sort_groupby``, whose word is
+    the same whenever these codes fit."""
+    from .sortgroup import sort_groupby  # sortgroup imports this module
+
     if not all(s.kind in _SUPPORTED for s in aggs):
         return None
     kcols = [tbl[k] for k in keys]
-    cap = kcols[0].capacity
-    plan = plan_codes(kcols, max_bits=62 - _posbits(cap))
-    if plan is None:
+    if plan_codes(kcols, max_bits=62 - _posbits(kcols[0].capacity)) is None:
         return None
-    tbits = sum(w for _, w in plan)
-    slot, active = _make_key(kcols, plan, dropna_keys)
-    sentinel = 1 << tbits
-    scode, pos = torch.sort(torch.where(active, slot, sentinel), stable=True)
-    act = scode < sentinel
-    out, starts, n_groups = aggregate_sorted(tbl, keys, aggs, pos, act,
-                                             new_groups(scode, act))
-    out.update(decode_keys(keys, kcols, plan, scode[starts], n_groups))
-    return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})
+    return sort_groupby(tbl, keys, aggs, dropna_keys)
 
 
 def aggregate_sorted(tbl: Table, keys: Sequence[str], aggs, pos: torch.Tensor,

@@ -64,7 +64,8 @@ def _make_word(kcols: Sequence[Column], plan, dropna: bool):
     """(word, flip): int64 [sentinel:1][packed codes:tbits] XOR ``flip``;
     the sentinel marks padding / dropped-null rows (sort last). ``flip`` is
     INT64_MIN only when the sentinel needs the top bit (tbits = 63), else 0,
-    which spares a pass over the word on either side of the sort."""
+    which spares a pass over the word before the sort and over the group
+    starts after it."""
     slot, active = fastgroup._make_key(kcols, plan, dropna)
     tbits = sum(w for _, w in plan)
     flip = _I64_MIN if tbits == MAX_CODE_BITS else 0
@@ -88,5 +89,6 @@ def sort_groupby(tbl: Table, keys: Sequence[str], aggs,
     act = skey < (1 << tbits) + flip
     out, starts, n_groups = fastgroup.aggregate_sorted(
         tbl, keys, aggs, pos, act, fastgroup.new_groups(skey, act))
-    out.update(fastgroup.decode_keys(keys, kcols, plan, skey[starts] ^ flip, n_groups))
+    first = skey[starts] ^ flip if flip else skey[starts]
+    out.update(fastgroup.decode_keys(keys, kcols, plan, first, n_groups))
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})

@@ -301,6 +301,10 @@ def _arg_frame(layout, seed, n=2000):
     if layout == "ties":
         x = rng.integers(0, 3, n).astype(np.float64)
     if layout == "nan":
+        # A known fault shared with the reference (ROADMAP.md §3): a group
+        # whose values hold a NaN comes back valid with 2147483647, where
+        # pandas gives the first row of the smallest non-NaN value. The
+        # repair re-points this layout at pandas' idxmin/idxmax.
         x[rng.random(n) < 0.1] = np.nan
         x[(g == 7).to_numpy(bool, na_value=False)] = np.nan
     cols = {"g": g, "x": _nullable(rng, x, 0.1)} if layout != "nan" else {"g": g, "x": x}
