@@ -33,6 +33,7 @@ import torch
 from . import dtypes
 from .dtypes import DType, Kind
 from ..utils.padding import bucket_capacity
+from ..utils.tracing import annotate
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,9 +68,10 @@ def _pad_to(arr: np.ndarray, capacity: int, device, fill=0) -> torch.Tensor:
         # read-only host arrays (pandas exports) are only ever copied from
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
         src = torch.from_numpy(arr)
-    out = torch.full((capacity,), fill, dtype=src.dtype, device=device)
-    if n:
-        out[:n].copy_(src)
+    with annotate("host_to_device"):
+        out = torch.full((capacity,), fill, dtype=src.dtype, device=device)
+        if n:
+            out[:n].copy_(src)
     return out
 
 

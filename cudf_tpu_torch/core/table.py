@@ -18,6 +18,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.tracing import annotate, trace_op
 from .column import Column, resolve_device
 
 
@@ -132,41 +133,17 @@ class Table:
 
     # ----------------------------------------------------------------- inter
     @classmethod
+    @trace_op
     def from_pandas(cls, df, device=None) -> "Table":
         """Ingest a pandas frame. Floats keep NaN as a value (cudf
         semantics); pandas nullable extension dtypes become a validity
         mask; object/string columns become sorted-dictionary codes."""
-        from ..utils.real_pandas import pd
-
         dev = resolve_device(device)
         cols = {}
         for name in df.columns:
             s = df[name]
-            if str(s.dtype) == "category":
-                from .categorical import from_pandas_categorical
-
-                cols[str(name)] = from_pandas_categorical(s.values, dev)
-                continue
-            if isinstance(s.dtype, pd.api.extensions.ExtensionDtype) and \
-                    str(s.dtype) != "string":
-                isnull = s.isna().to_numpy()
-                base = getattr(s.dtype, "numpy_dtype", None) or np.dtype("O")
-                try:
-                    vals = s.to_numpy(dtype=base, na_value=0)
-                except (TypeError, ValueError):
-                    vals = s.fillna(0).to_numpy()
-                cols[str(name)] = Column.from_numpy(
-                    np.asarray(vals), validity=~isnull if isnull.any() else None,
-                    device=dev)
-                continue
-            vals = s.to_numpy()
-            if vals.dtype.kind == "f":
-                cols[str(name)] = Column.from_numpy(vals, device=dev)
-            else:
-                isnull = s.isna().to_numpy()
-                cols[str(name)] = Column.from_numpy(
-                    vals, validity=~isnull if isnull.any() else None,
-                    device=dev)
+            with annotate(f"from_pandas.{s.dtype}"):
+                cols[str(name)] = _column_from_pandas(s, dev)
         return cls(cols)
 
     @classmethod
@@ -216,6 +193,30 @@ class Table:
         import pyarrow as pa
 
         return pa.table({n: c.to_arrow() for n, c in self._columns.items()})
+
+
+def _column_from_pandas(s, dev) -> Column:
+    """One pandas Series as a column (``Table.from_pandas``'s rules)."""
+    from ..utils.real_pandas import pd
+
+    if str(s.dtype) == "category":
+        from .categorical import from_pandas_categorical
+
+        return from_pandas_categorical(s.values, dev)
+    if isinstance(s.dtype, pd.api.extensions.ExtensionDtype) and str(s.dtype) != "string":
+        isnull = s.isna().to_numpy()
+        base = getattr(s.dtype, "numpy_dtype", None) or np.dtype("O")
+        try:
+            vals = s.to_numpy(dtype=base, na_value=0)
+        except (TypeError, ValueError):
+            vals = s.fillna(0).to_numpy()
+        return Column.from_numpy(np.asarray(vals), validity=~isnull if isnull.any() else None,
+                                 device=dev)
+    vals = s.to_numpy()
+    if vals.dtype.kind == "f":
+        return Column.from_numpy(vals, device=dev)
+    isnull = s.isna().to_numpy()
+    return Column.from_numpy(vals, validity=~isnull if isnull.any() else None, device=dev)
 
 
 def tables_equal(a: "Table", b: "Table") -> bool:

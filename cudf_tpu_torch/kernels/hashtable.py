@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import annotate
 from . import KernelError, entry, on_device, stream_of
 
 MAX_PROBE = 16
@@ -70,7 +71,8 @@ def build_table(k1: torch.Tensor, k2: torch.Tensor, valid: torch.Tensor, m: int)
     slots = torch.zeros((m + 1, 4), dtype=torch.int32, device=dev)
     slots[:, 2] = EMPTY
     tk1, tk2, payload = slots[:, 0], slots[:, 1], slots[:, 2]
-    pending = torch.nonzero(valid).squeeze(1)  # unplaced row ids, ascending
+    with annotate("host_read.hashtable.pending"):
+        pending = torch.nonzero(valid).squeeze(1)  # unplaced row ids, ascending
     for i in range(MAX_PROBE):
         if pending.numel() == 0:
             break
@@ -85,7 +87,8 @@ def build_table(k1: torch.Tensor, k2: torch.Tensor, valid: torch.Tensor, m: int)
         # a row is placed once its key is in the table (covers duplicates)
         present = ((payload[slot] != EMPTY) & (tk1[slot] == k1[pending])
                    & (tk2[slot] == k2[pending]))
-        pending = pending[~present]
+        with annotate("host_read.hashtable.pending"):
+            pending = pending[~present]
     return tk1[:m], tk2[:m], payload[:m], pending.numel() == 0
 
 

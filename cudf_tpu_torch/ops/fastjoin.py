@@ -43,6 +43,7 @@ from ..core.column import Column
 from ..core.table import Table
 from ..kernels import hashtable as ht
 from ..utils.padding import bucket_capacity
+from ..utils.tracing import annotate
 from . import hashgroup
 from .copying import gather
 
@@ -66,23 +67,27 @@ def _active(cols, nulls_equal: bool) -> torch.Tensor:
 def build_hash_table(lcols, rcols, nulls_equal: bool):
     """Steps 2-3 for promoted key columns: (left words (q1, q2), table
     (tk1, tk2, payload), active build rows), or None when the keys do not
-    pack into 64 bits or a row finds no slot in the largest table."""
+    pack into 64 bits or a row finds no slot in the largest table. One
+    ``hash_build`` range, a ``hash_build.round`` in it for each size."""
     from .join import _join_key_operands
 
-    r_words, _, mins, widths = hashgroup.pack_key_words(
-        _join_key_operands(rcols), joint_with=_join_key_operands(lcols))
-    if r_words is None:
+    with annotate("hash_build"):
+        r_words, _, mins, widths = hashgroup.pack_key_words(
+            _join_key_operands(rcols), joint_with=_join_key_operands(lcols))
+        if r_words is None:
+            return None
+        r_act = _active(rcols, nulls_equal)
+        with annotate("host_read.fastjoin.n_build"):
+            n_build = int(r_act.sum().item())
+        m = ht.table_size_for(n_build)
+        for _ in range(MAX_GROWTH + 1):
+            with annotate("hash_build.round"):
+                tk1, tk2, payload, all_placed = ht.build_table(*r_words, r_act, m)
+            if all_placed:
+                l_words = hashgroup.pack_like(_join_key_operands(lcols), mins, widths)
+                return l_words, (tk1, tk2, payload), n_build
+            m *= 2
         return None
-    r_act = _active(rcols, nulls_equal)
-    n_build = int(r_act.sum().item())
-    m = ht.table_size_for(n_build)
-    for _ in range(MAX_GROWTH + 1):
-        tk1, tk2, payload, all_placed = ht.build_table(*r_words, r_act, m)
-        if all_placed:
-            l_words = hashgroup.pack_like(_join_key_operands(lcols), mins, widths)
-            return l_words, (tk1, tk2, payload), n_build
-        m *= 2
-    return None
 
 
 def _match(probe: Table, build: Table, probe_on: Sequence[str],
@@ -97,8 +102,11 @@ def _match(probe: Table, build: Table, probe_on: Sequence[str],
     if built is None:
         return None
     p_words, table, n_build = built
-    if distinct and int((table[2] != ht.EMPTY).sum().item()) != n_build:
-        return None  # duplicate build keys: the general lane expands them
+    if distinct:
+        with annotate("host_read.fastjoin.distinct"):
+            occupied = int((table[2] != ht.EMPTY).sum().item())
+        if occupied != n_build:
+            return None  # duplicate build keys: the general lane expands them
     if probe.num_rows and build.num_rows:
         hit = ht.probe_table(*table, *p_words)
     else:  # padding rows only on a side: nothing can match, nothing launches
@@ -132,7 +140,8 @@ def try_fast_join(left: Table, right: Table, left_on: Sequence[str],
         if found is None:
             return None
         hit, matched = found
-        rows = torch.nonzero(matched).squeeze(1)
+        with annotate("host_read.fastjoin.matched"):
+            rows = torch.nonzero(matched).squeeze(1)
         n_out = rows.numel()
         left_cols = _gather_rows(left, hit[rows], n_out)
         right_idx = torch.full((bucket_capacity(max(n_out, 1)),), -1, dtype=torch.int64,
@@ -154,7 +163,8 @@ def try_fast_join(left: Table, right: Table, left_on: Sequence[str],
         left_cols = {n: left[n] for n in left.names}  # zero-copy
         right_idx = torch.where(matched, hit, -1)
     else:
-        rows = torch.nonzero(matched).squeeze(1)
+        with annotate("host_read.fastjoin.matched"):
+            rows = torch.nonzero(matched).squeeze(1)
         n_out = rows.numel()
         if n_out == left.num_rows:
             left_cols = {n: left[n] for n in left.names}  # every row matched

@@ -47,7 +47,7 @@ from ..core import dtypes
 from ..core.column import Column
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
-from ..utils.tracing import trace_op
+from ..utils.tracing import annotate, trace_op
 from . import rowcodes
 from .copying import concatenate_tables, gather
 from .sortprim import multisort_perm, tiled_cumsum
@@ -145,7 +145,8 @@ def _probe_finish(lcols, rcols, perm, nulls_equal: bool):
     # each row's group start: the reference's cummax over start positions,
     # as a gather by group id (torch's cummax scan took 398 ms of a 557 ms
     # join at 2^27 combined rows on an H100)
-    grp_start = torch.nonzero(newgrp).squeeze(1)[tiled_cumsum(newgrp) - 1]
+    with annotate("host_read.join.group_start"):
+        grp_start = torch.nonzero(newgrp).squeeze(1)[tiled_cumsum(newgrp) - 1]
 
     rv = r_valid.to(torch.int64)
     rights_incl = tiled_cumsum(rv)             # rights with key <= mine
@@ -154,14 +155,18 @@ def _probe_finish(lcols, rcols, perm, nulls_equal: bool):
     counts_sorted = rights_incl - lb_here
 
     # each left row appears once in perm: scatter to its original position
-    li = l_row[is_left]
+    with annotate("host_read.join.left_rows"):
+        li = l_row[is_left]
     counts = torch.zeros(capL, dtype=torch.int64, device=dev)
     lb = torch.zeros(capL, dtype=torch.int64, device=dev)
-    counts[li] = counts_sorted[is_left]
-    lb[li] = lb_here[is_left]
+    with annotate("host_read.join.left_rows"):
+        counts[li] = counts_sorted[is_left]
+    with annotate("host_read.join.left_rows"):
+        lb[li] = lb_here[is_left]
 
     r_perm = torch.zeros(capR, dtype=torch.int64, device=dev)
-    r_perm[rights_excl[r_valid]] = r_row[r_valid]
+    with annotate("host_read.join.right_rows"):
+        r_perm[rights_excl[r_valid]] = r_row[r_valid]
 
     linb = lcols[0].bounds_mask()
     keep = linb if nulls_equal else linb & ~_anynull(lcols, capL, dev)
@@ -235,7 +240,8 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
         keep = (counts == 0) if how == "anti" else (counts > 0)
         return apply_boolean_mask(left, Column(dtypes.bool_, keep, None, left.num_rows))
     eff = torch.where(linb, counts.clamp(min=1), 0) if how == "left" else counts
-    n_out = int(eff.sum().item())  # the one host read of the size pass
+    with annotate("host_read.join.n_out"):
+        n_out = int(eff.sum().item())  # the one host read of the size pass
     left_idx, right_idx = _expand(counts, lb, r_perm, eff, n_out,
                                   bucket_capacity(max(n_out, 1)))
     left_cols = {n: gather(left[n], left_idx, n_out) for n in left.names}
@@ -253,7 +259,8 @@ def _n_active(tbl: Table, on: Sequence[str], nulls_equal: bool) -> int:
     for c in cols:
         if c.validity is not None:
             act &= c.validity
-    return int(act.sum().item())
+    with annotate("host_read.join.n_active"):
+        return int(act.sum().item())
 
 
 def _right_payload(rnames, left_on, right_on) -> List[str]:
@@ -453,7 +460,8 @@ def conditional_join(left: Table, right: Table, predicate, how: str = "inner",
         keep = mask.data[:n_out].to(torch.bool)
         if mask.validity is not None:
             keep &= mask.validity[:n_out]
-        hit = torch.nonzero(keep).squeeze(1)
+        with annotate("host_read.join.conditional_hits"):
+            hit = torch.nonzero(keep).squeeze(1)
         if need_flags:
             matched[li[hit]] = True
         if how in ("inner", "left"):

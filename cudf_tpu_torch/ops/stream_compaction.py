@@ -24,6 +24,7 @@ from ..core import dtypes
 from ..core.column import Column
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
+from ..utils.tracing import trace_op
 from . import rowcodes
 from .sortprim import multisort_perm
 
@@ -71,6 +72,7 @@ def _mask_keep(mask: Column) -> torch.Tensor:
     return keep
 
 
+@trace_op
 def apply_boolean_mask(tbl: Table, mask: Column) -> Table:
     """Keep rows where mask is true (null mask rows are dropped — cuDF)."""
     return _compact(tbl, _mask_keep(mask))
