@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import dtypes
-from .column import Column, _pad_to, resolve_device
+from .column import Column, _pad_to, _validity_of_marked, resolve_device
 from .dtypes import DType, Kind
 from ..utils.padding import bucket_capacity
 
@@ -89,21 +89,25 @@ def decode(col: Column) -> Column:
 
 def from_codes(codes: np.ndarray, categories: np.ndarray,
                ordered: bool = False, device=None) -> Column:
-    """A categorical column from pandas-style codes (-1 is null)."""
+    """A categorical column from pandas-style codes (-1 is null). The codes
+    cross to the device at their own integer width (pandas' int8 for up to
+    127 categories), unpadded, in one copy; the null test, the widening to
+    int32 and the zeroing of nulls run there."""
     dev = resolve_device(device)
-    codes = np.asarray(codes, np.int32)
+    codes = np.asarray(codes)
     n = len(codes)
     cap = bucket_capacity(max(n, 1))
-    isnull = codes < 0
-    data = _pad_to(np.where(isnull, 0, codes).astype(np.int32), cap, dev)
-    v = _pad_to(~isnull, cap, dev, False) if isnull.any() else None
+    staged = _pad_to(codes, n, dev)
+    data = torch.zeros(cap, dtype=torch.int32, device=dev)
+    data[:n].copy_(staged).clamp_(min=0)
+    v = _validity_of_marked(staged < 0, cap)
     return Column(categorical_dtype(ordered), data, v, n,
                   dictionary=np.asarray(categories, dtype=object))
 
 
 def from_pandas_categorical(cat, device=None) -> Column:
     """Build from a pandas.Categorical (codes -1 == null)."""
-    return from_codes(np.asarray(cat.codes, np.int32),
+    return from_codes(cat.codes,
                       np.asarray(cat.categories.to_numpy(), dtype=object),
                       bool(cat.ordered), device)
 

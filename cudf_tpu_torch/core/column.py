@@ -75,6 +75,18 @@ def _pad_to(arr: np.ndarray, capacity: int, device, fill=0) -> torch.Tensor:
     return out
 
 
+def _validity_of_marked(isnull: torch.Tensor, capacity: int) -> Optional[torch.Tensor]:
+    """Validity of a column whose values mark its own nulls (a categorical's
+    code -1, a NaT), from ``isnull`` computed on the device over its rows:
+    None when no row is null, which the host learns in one read."""
+    with annotate("host_read.ingest.nulls"):
+        if not bool(isnull.any()):
+            return None
+    v = torch.zeros(capacity, dtype=torch.bool, device=isnull.device)
+    v[: isnull.shape[0]] = ~isnull
+    return v
+
+
 class Column:
     """A device column: padded data + validity + logical length."""
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.tracing import annotate, trace_op
-from .column import Column, resolve_device
+from .column import Column, _validity_of_marked, resolve_device
 
 
 class Deferred:
@@ -215,6 +215,12 @@ def _column_from_pandas(s, dev) -> Column:
     vals = s.to_numpy()
     if vals.dtype.kind == "f":
         return Column.from_numpy(vals, device=dev)
+    if vals.dtype.kind in "mM":
+        # the values cross as they are, and a NaT is INT64_MIN among them:
+        # its nulls are found on the device
+        col = Column.from_numpy(vals, device=dev)
+        nat = col.data[: col.length] == np.iinfo(np.int64).min
+        return col.with_validity(_validity_of_marked(nat, col.capacity))
     isnull = s.isna().to_numpy()
     return Column.from_numpy(vals, validity=~isnull if isnull.any() else None, device=dev)
 

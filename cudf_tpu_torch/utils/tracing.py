@@ -43,6 +43,12 @@ The ranges, where each opens, and the benchmark metric that reads it
   for the card to hand the host a value (``host_read.join.n_out``,
   ``host_read.fastjoin.distinct``, ``host_read.hashtable.pending``, ...);
   ``join_host_reads`` counts them inside ``join``;
+- ``host_read.ingest.nulls``: ``core/column.py:_validity_of_marked``, the
+  one read of whether any row is null in a column whose values mark
+  their nulls (a categorical's code -1, a datetime64/timedelta64 NaT),
+  whose null test runs on the device; one a column of that kind at
+  ingest. No metric reads it (``join_host_reads`` counts only inside
+  ``join``);
 - ``apply_boolean_mask``: ``trace_op`` on
   ``ops/stream_compaction.py:apply_boolean_mask``, one compaction;
   ``compaction_share``.

@@ -4,6 +4,7 @@ reads, compaction; that nothing changes and nothing prints with no
 profiler running; and, on the card, the ``performance_tracking`` log's
 ``wall_s`` holding the range's device work.
 """
+import contextlib
 import json
 
 import numpy as np
@@ -90,6 +91,90 @@ def test_each_kind_of_column_names_its_range(dtype):
     _, events = _traced(lambda: Table.from_pandas(pdf, device="cpu"))
     (col,) = _named(events, f"from_pandas.{dtype}")
     assert any(col.name in _ancestors(e) for e in _named(events, "host_to_device"))
+
+
+@pytest.mark.parametrize("dtype", list(COLUMNS))
+def test_marked_nulls_are_read_once_a_column_inside_its_range(dtype):
+    """A categorical or datetime column's null test runs on the device and
+    the host reads its answer once, in ``host_read.ingest.nulls``; other
+    columns read nothing."""
+    pdf = pd.DataFrame({"c": COLUMNS[dtype]()})
+    _, events = _traced(lambda: Table.from_pandas(pdf, device="cpu"))
+    reads = _named(events, "host_read.ingest.nulls")
+    assert len(reads) == (dtype in ("category", "datetime64[ns]"))
+    assert all(_ancestors(e)[:2] == [f"from_pandas.{dtype}", "Table.from_pandas"]
+               for e in reads)
+
+
+def test_the_ingest_cells_frame_reads_its_nulls_three_times():
+    """Two flags, one date and four float64 columns, as the benchmark's
+    ingest builds them: three reads, none a float64 column's."""
+    n = 1000
+    rng = np.random.default_rng(0)
+    pdf = pd.DataFrame({
+        "l_returnflag": pd.Categorical.from_codes(rng.integers(0, 3, n), ["A", "N", "R"]),
+        "l_linestatus": pd.Categorical.from_codes(rng.integers(0, 2, n), ["F", "O"]),
+        "l_shipdate": rng.integers(0, 1 << 60, n).view("datetime64[ns]"),
+        **{c: rng.random(n) for c in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")}})
+    tbl, events = _traced(lambda: ctt.from_pandas(pdf, device="cpu"))
+    reads = _named(events, "host_read.ingest.nulls")
+    assert sorted(_ancestors(e)[0] for e in reads) == [
+        "from_pandas.category", "from_pandas.category", "from_pandas.datetime64[ns]"]
+    assert all(tbl[c].column.validity is None for c in pdf.columns)
+    pd.testing.assert_frame_equal(tbl.to_pandas(), pdf)
+
+
+def test_every_host_array_crosses_inside_host_to_device(monkeypatch):
+    """Spies on the ways a host array reaches a tensor (``torch.from_numpy``
+    then ``copy_``, ``torch.as_tensor``, ``torch.tensor``): during an ingest
+    of every kind of column, each host array is copied inside a
+    ``host_to_device`` range, whose name the spy on ``annotate`` tracks."""
+    from cudf_tpu_torch.core import column as C
+
+    open_ranges, born, crossed = [], [], []
+    real_annotate, real_from_numpy = C.annotate, torch.from_numpy
+    real_copy, real_as_tensor, real_tensor = torch.Tensor.copy_, torch.as_tensor, torch.tensor
+
+    def annotate(name, **meta):
+        @contextlib.contextmanager
+        def ranged():
+            open_ranges.append(name)
+            try:
+                with real_annotate(name, **meta):
+                    yield
+            finally:
+                open_ranges.pop()
+        return ranged()
+
+    def from_numpy(arr):
+        t = real_from_numpy(arr)
+        born.append(t)  # kept alive, so no later tensor reuses its address
+        return t
+
+    def copy_(self, src, *args, **kwargs):
+        if any(src.data_ptr() == b.data_ptr() and src.numel() for b in born):
+            crossed.append(("copy_", "host_to_device" in open_ranges))
+        return real_copy(self, src, *args, **kwargs)
+
+    def from_host(real, name):
+        def spy(data, *args, **kwargs):
+            if isinstance(data, np.ndarray):
+                crossed.append((name, "host_to_device" in open_ranges))
+            return real(data, *args, **kwargs)
+        return spy
+
+    monkeypatch.setattr(C, "annotate", annotate)
+    monkeypatch.setattr(torch, "from_numpy", from_numpy)
+    monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+    monkeypatch.setattr(torch, "as_tensor", from_host(real_as_tensor, "as_tensor"))
+    monkeypatch.setattr(torch, "tensor", from_host(real_tensor, "tensor"))
+    pdf = pd.DataFrame({k: make() for k, make in COLUMNS.items()})
+    pdf["timedelta64[ns]"] = pd.to_timedelta([1, None, 3, 4], unit="ns")
+    tbl = Table.from_pandas(pdf, device="cpu")
+    monkeypatch.undo()
+    assert len(crossed) >= len(pdf.columns)
+    assert all(inside for _, inside in crossed), crossed
+    assert tbl.names == list(pdf.columns)
 
 
 @pytest.mark.parametrize("entry", ["ctt.from_pandas", "DataFrame.from_pandas", "DataFrame"])
