@@ -18,11 +18,14 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from ..core.column import Column
 from ..core.table import Table
+from ..ops.copying import gather
 from ..ops.groupby import AggSpec, groupby_aggregate
+from ..utils.tracing import annotate
 
 _METHODS = (
     "sum", "mean", "min", "max", "count", "nunique", "var", "std",
@@ -55,28 +58,36 @@ class DataFrameGroupBy:
             return self._value_cols
         return [n for n in self._df._tbl.names if n not in self._keys]
 
-    def _run(self, specs):
+    def _missing_as_nulls(self, used) -> Table:
+        """The frame's columns ``used`` with each NaN as a null (pandas: a
+        NaN is missing); a float column without one keeps its mask or lack
+        of one, so a dropna'd value column takes the one-hot lane at V = 1."""
         from ..ops.unaryop import nans_to_nulls
-        from .dataframe import DataFrame
-        from .series import Series
 
+        tbl = self._df._tbl
+        conv = {n for n in used
+                if tbl[n].dtype.is_floating and bool(torch.isnan(tbl[n].data).any())}
+        if conv:
+            return Table({n: (nans_to_nulls(tbl[n]) if n in conv else tbl[n])
+                          for n in tbl.names if n in used})
+        return tbl.select([n for n in tbl.names if n in used])
+
+    def _aggregate(self, specs) -> Table:
         if not self._sort:
             # the engine's output is key-sorted; pandas sort=False keeps the
             # first-appearance order, which it does not give
             raise NotImplementedError("groupby(sort=False)")
+        used = set(self._keys) | {c for s in specs for c in (s.column, s.other) if c}
+        return groupby_aggregate(self._missing_as_nulls(used), self._keys, specs,
+                                 self._dropna)
+
+    def _run(self, specs):
+        from .dataframe import DataFrame
+        from .series import Series
+
         if self._scalar_sel and len(specs) != 1:
             raise TypeError("a selected column takes exactly one aggregation")
-        tbl = self._df._tbl
-        used = set(self._keys) | {s.column for s in specs if s.column}
-        # a NaN is missing; a float column without one keeps its mask or
-        # lack of one, so a dropna'd value column takes the one-hot lane at V = 1
-        conv = {n for n in used
-                if tbl[n].dtype.is_floating and bool(torch.isnan(tbl[n].data).any())}
-        if conv:
-            tbl = Table({n: (nans_to_nulls(tbl[n]) if n in conv else tbl[n]) for n in used})
-        else:
-            tbl = tbl.select([n for n in tbl.names if n in used])
-        out = groupby_aggregate(tbl, self._keys, specs, self._dropna)
+        out = self._aggregate(specs)
         fill = {"sum": 0, "product": 1}
         fixed = {}
         for s in specs:
@@ -130,6 +141,65 @@ class DataFrameGroupBy:
 
     def size(self):
         return self._run([AggSpec("", "size", "size")])
+
+    def corr(self):
+        """Each group's Pearson correlation matrix of the numeric value
+        columns, as pandas: rows indexed by the keys and the column's name
+        (a MultiIndex whose last level is unnamed), one column a value
+        column, in key order. A pair takes only the rows where both values
+        are present; a group with fewer than two, or with zero variance in
+        either column, gives NaN (``fastgroup.grouped_corr``). One groupby
+        computes every pair of the lower triangle, the diagonal included."""
+        from ..core import dtypes
+        from ..ops.fastgroup import padded_column
+        from .dataframe import DataFrame
+        from .index import MultiIndex
+
+        cols = [n for n in self._value_columns() if self._df._tbl[n].dtype.is_numeric
+                and self._df._tbl[n].dtype.kind != dtypes.Kind.BOOL]
+        if not cols:
+            raise TypeError("no numeric columns to correlate")
+        pair = {(i, j): f"__corr_{i}_{j}" for i in range(len(cols)) for j in range(i + 1)}
+        out = self._aggregate([AggSpec(cols[i], "corr", name, other=cols[j])
+                               for (i, j), name in pair.items()])
+        k, g = len(cols), out.num_rows
+        dev = self._df.device
+        rows = torch.arange(g * k, device=dev)
+        levels = [gather(out[n], rows // k, g * k) for n in self._keys]
+        names = np.array(sorted(cols), dtype=object)
+        code = torch.tensor([int(np.searchsorted(names, c)) for c in cols],
+                            dtype=torch.int32, device=dev)
+        levels.append(padded_column(dtypes.string, code.repeat(g), None, g * k, names))
+        data = {}
+        for j, name in enumerate(cols):
+            # row g·k + i holds r(cols[i], cols[j]) of group g
+            r = torch.stack([out[pair[max(i, j), min(i, j)]].data[:g] for i in range(k)], 1)
+            data[name] = padded_column(dtypes.float64, r.reshape(-1), None, g * k)
+        return DataFrame._from_table(Table(data), MultiIndex(levels, list(self._keys) + [None]),
+                                     dev)
+
+    def head(self, n: int = 5):
+        """The first ``n`` rows of each group (pandas' ``groupby.head``), in
+        the frame's row order with their index: the grouped row number
+        (``grouped_window.grouped_scan``) and one mask compaction. Rows with
+        a missing key are left out under ``dropna`` and are a group of
+        their own without it."""
+        from ..core import dtypes
+        from ..ops.grouped_window import grouped_scan
+        from .series import Series
+
+        if n < 0:
+            raise NotImplementedError("groupby().head with a negative n")
+        with annotate("groupby_head"):
+            keys = self._missing_as_nulls(set(self._keys))
+            rn = grouped_scan(keys, self._keys, self._keys[0], "row_number")
+            keep = rn.validity & (rn.data <= n)
+            if self._dropna:
+                for c in keys.columns:
+                    if c.validity is not None:
+                        keep = keep & c.validity
+            df = self._df if self._value_cols is None else self._df[self._value_cols]
+            return df[Series(column=Column(dtypes.bool_, keep, None, rn.length))]
 
     # ---- window methods: one value per row, in the original row order ----
     def _window_col(self, fn, *args):

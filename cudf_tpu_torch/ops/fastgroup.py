@@ -28,6 +28,7 @@ from ..core.column import Column
 from ..core.dtypes import Kind
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
+from ..utils.tracing import annotate
 from .sortprim import _posbits, segment_reduce, tiled_cumsum
 
 _SUPPORTED = {
@@ -384,17 +385,106 @@ def aggregate_sorted(tbl: Table, keys: Sequence[str], aggs, pos: torch.Tensor,
     seg = torch.where(act, tiled_cumsum(newgrp) - 1, n_groups)
     starts, lengths = group_starts(newgrp, n_active)
     sums = GroupSums(seg, lengths, n_active)
-    vcols, kinds, agg_vidx = _value_columns(tbl, keys, aggs)
+    one = [s for s in aggs if s.kind != "corr"]
+    vcols, kinds, agg_vidx = _value_columns(tbl, keys, one)
     arrs_by_col = []
     for c, kset in zip(vcols, kinds):
         sval = c.validity[pos] if c.validity is not None else None
         arrs_by_col.append(build_scan_arrays(c.data[pos], sval, act, seg, n_groups,
                                              sums, kset))
     out = {}
-    for spec, vidx in zip(aggs, agg_vidx):
+    for spec, vidx in zip(one, agg_vidx):
         out[spec.out_name] = _finish_agg(spec, arrs_by_col[vidx], vcols[vidx],
                                          lengths, seg, pos, n_groups)
+    corr = [s for s in aggs if s.kind == "corr"]
+    if corr:
+        with annotate("groupby.corr"):
+            for spec in corr:
+                out[spec.out_name] = grouped_corr(tbl[spec.column], tbl[spec.other], pos,
+                                                  act, seg, n_groups, sums)
     return out, starts, n_groups
+
+
+def _exact_moments(xcol: Column, ycol: Column, n_rows: int) -> bool:
+    """Whether the integer moments of ``grouped_corr`` fit in int64: both
+    columns integral, and n_rows² · max|x|·max|y| (also with x = y) below
+    2^62, which bounds every prefix sum and every n·Σxy − Σx·Σy."""
+    if not all(c.dtype.kind in (Kind.INT, Kind.UINT) and c.data.dtype != torch.uint64
+               for c in (xcol, ycol)):
+        return False
+    big = []
+    for c in (xcol, ycol):
+        st = colstats.compute_stats(c)
+        if st is None:
+            return False
+        big.append(max(abs(int(st.vmin)), abs(int(st.vmax)), 1))
+    return n_rows * n_rows * max(big) ** 2 < (1 << 62)
+
+
+def grouped_corr(xcol: Column, ycol: Column, pos: torch.Tensor, act: torch.Tensor,
+                 seg: torch.Tensor, n_groups: int, sums: GroupSums) -> Column:
+    """Each group's Pearson correlation of ``xcol`` and ``ycol`` over rows
+    sorted by key (``pos``: each sorted row's original index; ``act``: rows
+    in a group; ``seg``: the group id; ``sums``: the grouping's GroupSums),
+    as pandas: only rows where both values are valid and not NaN, and null
+    for a group with fewer than two such rows or with every such value of
+    a column equal (zero variance).
+
+    Integer columns whose moments fit in int64 (``_exact_moments``) take
+    exact moments: C = n·Σxy − Σx·Σy, A = n·Σx² − (Σx)², B likewise, then
+    r = C / sqrt(A·B) in float64, within ~5 ulp of the true r whatever its
+    size (three roundings to float64, a product, a root and a quotient).
+    Other columns take two passes: the group means, then the centered sums
+    Sxy, Sxx, Syy in float64, r = Sxy / sqrt(Sxx·Syy). Sxx and Syy have no
+    cancellation; Sxy's error is within ~(m + 3)·eps·Σ|dx·dy| for a group
+    of m rows, at most (m + 3)·eps·sqrt(Sxx·Syy) by Cauchy-Schwarz, so r's
+    absolute error stays within ~(m + 5)·eps and its relative error grows
+    as 1/|r| near 0 (pandas' one-pass update has the same order). Every
+    sum is a GroupSums sum: the same bits on every run. The callers open
+    one ``groupby.corr`` range around a groupby's correlations."""
+    dev = pos.device
+    x, y = xcol.data[pos], ycol.data[pos]
+    ok = act
+    for c, v in ((xcol, x), (ycol, y)):
+        if c.validity is not None:
+            ok = ok & c.validity[pos]
+        if c.dtype.is_floating:
+            ok = ok & ~torch.isnan(v)
+    same = xcol is ycol
+    seg = torch.where(act, seg, n_groups)
+    n = sums(ok.to(torch.int64))
+    if _exact_moments(xcol, ycol, sums.n_rows):
+        xi = torch.where(ok, x.to(torch.int64), 0)
+        yi = xi if same else torch.where(ok, y.to(torch.int64), 0)
+        sx = sums(xi)
+        sxx = sums(xi * xi)
+        sy, syy, sxy = ((sx, sxx, sxx) if same
+                        else (sums(yi), sums(yi * yi), sums(xi * yi)))
+        a, b = n * sxx - sx * sx, n * syy - sy * sy
+        cov = (n * sxy - sx * sy).to(torch.float64)
+        flat = (a == 0) | (b == 0)
+    else:
+        xf = torch.where(ok, x.to(torch.float64), 0.0)
+        yf = xf if same else torch.where(ok, y.to(torch.float64), 0.0)
+        nf = n.clamp(min=1).to(torch.float64)
+        dx = torch.where(ok, xf - _at_group(sums(xf) / nf, seg), 0.0)
+        dy = dx if same else torch.where(ok, yf - _at_group(sums(yf) / nf, seg), 0.0)
+        a = sums(dx * dx)
+        b = a if same else sums(dy * dy)
+        cov = a if same else sums(dx * dy)
+        # zero variance exactly: a group whose values are all equal
+        # (its mean may round away from them, and its Sxx with it)
+        flat = torch.zeros(n_groups, dtype=torch.bool, device=dev)
+        for v in ((xf,) if same else (xf, yf)):
+            lo = segment_reduce(torch.where(ok, v, float("inf")), seg, n_groups + 1,
+                                "amin", float("inf"))[:n_groups]
+            hi = segment_reduce(torch.where(ok, v, float("-inf")), seg, n_groups + 1,
+                                "amax", float("-inf"))[:n_groups]
+            flat |= lo == hi
+    valid = (n >= 2) & ~flat
+    r = cov / torch.sqrt(a.to(torch.float64) * b.to(torch.float64))
+    r = torch.where(valid, r, float("nan"))
+    return padded_column(dtypes.float64, r, valid, n_groups)
 
 
 def _finish_agg(spec, arrs, vcol, lengths, seg, pos, n_groups) -> Column:

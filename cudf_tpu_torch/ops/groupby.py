@@ -18,6 +18,10 @@ Dispatch, in order:
      lexicographic sort of row codes, then per-segment reductions, for
      every key and aggregation.
 
+``corr`` (the Pearson correlation of ``column`` and ``other``, the one
+kind that reads two columns) goes on the sort lane where the keys pack
+and on the generic engine otherwise: ``fastgroup.grouped_corr``.
+
 Every lane returns groups in ascending key order with nulls last (pandas
 sort=True). Past the memory the op may use, ``groupby_aggregate`` runs
 partial aggregates chunk by chunk (``ops/chunked.py``) when every
@@ -34,7 +38,7 @@ from ..core import dtypes
 from ..core.column import Column
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
-from ..utils.tracing import trace_op
+from ..utils.tracing import annotate, trace_op
 from . import fastgroup, rowcodes
 from .copying import gather
 from .sortprim import _posbits, multisort_perm, segment_reduce, tiled_cumsum
@@ -46,6 +50,7 @@ class AggSpec:
     kind: str            # aggregation kind
     out_name: str
     param: float = 0.0   # quantile q / var ddof / nth n
+    other: str = ""      # the second column of a two-column kind (corr)
 
 
 def _onehot_plan(tbl: Table, keys: Sequence[str], aggs):
@@ -69,7 +74,8 @@ def groupby_aggregate(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
     """Grouped aggregation; output rows are in sorted key order."""
     from .chunked import GROUPBY_FACTOR, chunk_rows, chunked_groupby
 
-    used = list(dict.fromkeys(list(keys) + [s.column for s in aggs if s.column]))
+    used = list(dict.fromkeys(list(keys) + [c for s in aggs for c in (s.column, s.other)
+                                            if c]))
     sub = tbl.select(used) if used else tbl
     rows = chunk_rows(sub, GROUPBY_FACTOR)
     if rows is not None:
@@ -81,21 +87,26 @@ def groupby_aggregate(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
 
 def aggregate_in_memory(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
                         dropna_keys: bool = True) -> Table:
-    """The groupby lanes over the whole table at once (never chunked)."""
+    """The groupby lanes over the whole table at once (never chunked). Each
+    lane's attempt opens its range (``groupby.onehot``, ``groupby.sort``,
+    ``groupby.wide``, ``groupby.generic``), a refused one too."""
     from .sortgroup import sort_groupby
     from .widegroup import wide_groupby
 
     aggs = tuple(aggs)
-    onehot = _onehot_plan(tbl, keys, aggs)
-    if onehot is not None:
-        return fastgroup._onehot_groupby(tbl, keys, aggs, dropna_keys, *onehot)
-    sg = sort_groupby(tbl, keys, aggs, dropna_keys)
-    if sg is not None:
-        return sg
-    wide = wide_groupby(tbl, keys, aggs, dropna_keys)
-    if wide is not None:
-        return wide
-    return generic_groupby(tbl, keys, aggs, dropna_keys)
+    with annotate("groupby.onehot"):
+        onehot = _onehot_plan(tbl, keys, aggs)
+        if onehot is not None:
+            return fastgroup._onehot_groupby(tbl, keys, aggs, dropna_keys, *onehot)
+    with annotate("groupby.sort"):
+        out = sort_groupby(tbl, keys, aggs, dropna_keys)
+    if out is None:
+        with annotate("groupby.wide"):
+            out = wide_groupby(tbl, keys, aggs, dropna_keys)
+    if out is None:
+        with annotate("groupby.generic"):
+            out = generic_groupby(tbl, keys, aggs, dropna_keys)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +122,7 @@ def generic_groupby(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
     perm, seg, newgrp, inb_sorted, n_groups = _grouping(kcols, dropna_keys)
     out_cap = bucket_capacity(max(n_groups, 1))
     vcols = tuple(tbl[s.column] if s.column else kcols[0] for s in aggs)
+    ocols = tuple(tbl[s.other] if s.other else None for s in aggs)
     vperms = []
     for s in aggs:
         if s.kind in ("nunique", "median", "quantile"):
@@ -119,7 +131,7 @@ def generic_groupby(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
         else:
             vperms.append(None)
     out = _aggregate_impl(kcols, vcols, tuple(keys), aggs, out_cap, perm, seg,
-                          inb_sorted, n_groups, tuple(vperms))
+                          inb_sorted, n_groups, tuple(vperms), ocols)
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})
 
 
@@ -171,7 +183,7 @@ def _value_sort_codes(kcols, vcol, ordered):
 
 
 def _aggregate_impl(kcols, vcols, keynames, aggs, out_cap, perm, seg,
-                    inb_sorted, n_groups, vperms) -> Dict[str, Column]:
+                    inb_sorted, n_groups, vperms, ocols=None) -> Dict[str, Column]:
     cap = kcols[0].capacity
     dev = perm.device
     nseg = out_cap + 1  # overflow bucket for padding rows
@@ -187,10 +199,22 @@ def _aggregate_impl(kcols, vcols, keynames, aggs, out_cap, perm, seg,
         out[kname] = gather(kc, key_idx, n_groups)
     counts_all = segment_reduce(inb_sorted.to(torch.int64), seg_c, nseg,
                                 "sum", 0)[:out_cap]
-    for spec, vcol, vperm in zip(aggs, vcols, vperms):
+    corr = []
+    for spec, vcol, ocol, vperm in zip(aggs, vcols, ocols or (None,) * len(aggs), vperms):
+        if spec.kind == "corr":
+            corr.append((spec, vcol, ocol))
+            continue
         out[spec.out_name] = _compute_agg(vcol, spec, perm, seg_c, inb_sorted,
                                           nseg, out_cap, n_groups, counts_all,
                                           kcols, vperm)
+    if corr:
+        with annotate("groupby.corr"):
+            # the live rows lead, each group's rows together
+            lengths = counts_all[:n_groups]
+            sums = fastgroup.GroupSums(seg_c, lengths, int(lengths.sum().item()))
+            for spec, vcol, ocol in corr:
+                out[spec.out_name] = fastgroup.grouped_corr(vcol, ocol, perm, inb_sorted,
+                                                            seg_c, n_groups, sums)
     return out
 
 

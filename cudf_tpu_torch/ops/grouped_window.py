@@ -38,7 +38,10 @@ def _layout(tbl: Table, keys: Sequence[str]):
     perm = multisort_perm(ops)
     newgrp = rowcodes.adjacent_neq([op[perm] for op in ops])
     pos = torch.arange(kcols[0].capacity, device=perm.device)
-    grp_start = torch.cummax(torch.where(newgrp, pos, 0), 0).values
+    # each row's latest group start: the starts, indexed by a running count
+    # of them (a prefix sum; torch's cummax scan took ~0.4 s at 2^27 rows
+    # on the H100)
+    grp_start = pos[newgrp][torch.cumsum(newgrp, 0) - 1]
     return perm, grp_start, pos < length
 
 

@@ -35,8 +35,9 @@ from .fastgroup import _I64_MIN
 
 # every kind of fastgroup.aggregate_sorted, argmin/argmax included (the
 # reference leaves those two to fastgroup.fast_groupby, which sorts the same
-# rows by a narrower word and was no faster on the H100)
-_SUPPORTED = fastgroup._SUPPORTED
+# rows by a narrower word and was no faster on the H100), and corr, which
+# the other sorted lanes do not take
+_SUPPORTED = fastgroup._SUPPORTED | {"corr"}
 
 MAX_CODE_BITS = 63  # one 64-bit word minus the inactive-sentinel bit
 

@@ -51,7 +51,17 @@ The ranges, where each opens, and the benchmark metric that reads it
   ``join``);
 - ``apply_boolean_mask``: ``trace_op`` on
   ``ops/stream_compaction.py:apply_boolean_mask``, one compaction;
-  ``compaction_share``.
+  ``compaction_share``;
+- ``groupby.onehot``, ``groupby.sort``, ``groupby.wide``,
+  ``groupby.generic``: ``ops/groupby.py:aggregate_in_memory``, each
+  lane's attempt, a refused one (its plan check, or its call that
+  returns None) too; ``groupby_generic_share`` reads the last;
+- ``groupby.corr``: the moments of a groupby's correlations
+  (``ops/fastgroup.py:grouped_corr``), once a groupby, inside
+  ``groupby.sort`` (``aggregate_sorted``) or ``groupby.generic``
+  (``_aggregate_impl``). No metric reads it;
+- ``groupby_head``: ``frame/groupby.py:DataFrameGroupBy.head``, the
+  grouped row number and the compaction; ``groupby_head_share``.
 """
 from __future__ import annotations
 

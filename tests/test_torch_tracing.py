@@ -1,6 +1,7 @@
 """The port's ranges (``utils/tracing.py``) on a CPU ``torch.profiler``
 trace: ingest's conversion and copy, the join's hash builds and host
-reads, compaction; that nothing changes and nothing prints with no
+reads, compaction, the groupby lanes, a grouped correlation's moments and
+a grouped head; that nothing changes and nothing prints with no
 profiler running; and, on the card, the ``performance_tracking`` log's
 ``wall_s`` holding the range's device work.
 """
@@ -296,6 +297,83 @@ def test_frame_mask_filter_and_ir_filter_each_compact_in_a_range():
     assert len(_named(events, "apply_boolean_mask")) == 1
     assert got.to_pandas().reset_index(drop=True).equals(
         pdf[pdf.a > 2.0].reset_index(drop=True))
+
+
+# ------------------------------------------------------------ groupby lanes
+LANES = ["onehot", "sort", "wide", "generic"]
+
+
+def _lane_case(lane):
+    """(table, keys, aggregations) that ``lane`` answers: an f32 sum at a
+    few keys, an f64 sum, two int64 keys spread over 2^62 (too wide for one
+    word), a median."""
+    from cudf_tpu_torch.ops.groupby import AggSpec
+
+    rng = np.random.default_rng(3)
+    n = 400
+    pdf = pd.DataFrame({"k": rng.integers(0, 5, n),
+                        "w1": rng.integers(0, 2**62, 4, dtype=np.int64)[rng.integers(0, 4, n)],
+                        "w2": rng.integers(0, 2**62, 3, dtype=np.int64)[rng.integers(0, 3, n)],
+                        "f": rng.normal(size=n).astype(np.float32), "v": rng.normal(size=n)})
+    tbl = Table.from_pandas(pdf, device="cpu")
+    kind, col = {"onehot": ("sum", "f"), "sort": ("sum", "v"), "wide": ("sum", "v"),
+                 "generic": ("median", "v")}[lane]
+    keys = ["w1", "w2"] if lane == "wide" else ["k"]
+    return tbl, keys, [AggSpec(col, kind, "out")]
+
+
+def _no_sync(monkeypatch) -> list:
+    """A list that each ``torch.cuda.synchronize`` call appends to."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: calls.append(a))
+    return calls
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_a_groupby_opens_each_lane_it_tries_once(lane, monkeypatch):
+    """The lane that answers and each lane before it, which refused, open
+    their range once, inside ``groupby_aggregate``; no range synchronizes."""
+    from cudf_tpu_torch.ops.groupby import groupby_aggregate
+
+    tbl, keys, aggs = _lane_case(lane)
+    syncs = _no_sync(monkeypatch)
+    out, events = _traced(lambda: groupby_aggregate(tbl, keys, aggs))
+    assert out.num_rows > 1
+    tried = LANES[:LANES.index(lane) + 1]
+    assert {n: len(_named(events, f"groupby.{n}")) for n in LANES} == {
+        n: int(n in tried) for n in LANES}
+    for n in tried:
+        assert _ancestors(_named(events, f"groupby.{n}")[0])[0] == "groupby_aggregate"
+    assert syncs == []
+
+
+@pytest.mark.parametrize("lane", ["sort", "generic"])
+def test_corr_opens_one_range_a_call_inside_its_lane(lane, monkeypatch):
+    from cudf_tpu_torch.ops import sortgroup
+
+    if lane == "generic":
+        monkeypatch.setattr(sortgroup, "sort_groupby", lambda *a, **k: None)
+    rng = np.random.default_rng(4)
+    pdf = pd.DataFrame({"k": rng.integers(0, 4, 200), "a": rng.integers(0, 9, 200),
+                        "b": rng.normal(size=200), "c": rng.normal(size=200)})
+    df = DataFrame.from_pandas(pdf, device="cpu")
+    syncs = _no_sync(monkeypatch)
+    got, events = _traced(lambda: df.groupby("k")[["a", "b", "c"]].corr())
+    (corr,) = _named(events, "groupby.corr")
+    assert _ancestors(corr)[:2] == [f"groupby.{lane}", "groupby_aggregate"]
+    assert syncs == [] and got.shape == (12, 3)
+
+
+def test_head_opens_one_range_a_call_around_its_compaction(monkeypatch):
+    pdf = pd.DataFrame({"k": [3, 1, 3, 1, 2, 3], "v": [1.0, 2.0, 3.0, 4.0, 5.0, 6.0]})
+    df = DataFrame.from_pandas(pdf, device="cpu")
+    syncs = _no_sync(monkeypatch)
+    got, events = _traced(lambda: df.groupby("k").head(1))
+    (head,) = _named(events, "groupby_head")
+    (mask,) = _named(events, "apply_boolean_mask")
+    assert "groupby_head" in _ancestors(mask) and not _ancestors(head)
+    assert syncs == []
+    pd.testing.assert_frame_equal(got.to_pandas(), pdf.groupby("k").head(1))
 
 
 # ------------------------------------------------------- with no profiler
