@@ -13,7 +13,11 @@ Phases (each prints a line; any failure raises and exits nonzero):
                watchdog and hold it exactly against its plain version;
   2. kernels — call each kernel's wrapper on card tensors (the shapes the
                main path gives it, plus edge cases) against its plain PyTorch
-               version; time kernel, plain version and library calls;
+               version; time kernel, plain version and library calls; the
+               segment reduction at the h2o q6 shape (2^27 sorted rows,
+               10,001 segments, f64), then the db-benchmark's q6 and q7
+               through the DataFrame at 4M rows against pandas, with the
+               reduction's launches counted in each;
   3. main    — the README query at TPC-H SF10 lineitem size (60M rows):
                Table.from_pandas -> drop_nulls -> groupby_aggregate(
                [l_returnflag, l_linestatus], sum/mean/count/size of
@@ -31,6 +35,8 @@ Phases (each prints a line; any failure raises and exits nonzero):
                idxmin/idxmax and the lanes bit for bit against each other;
                their warm times in turns (best of ARG_RUNS), the lane that
                groupby_aggregate takes and the fastest lane's device profile;
+               the segment reduction's launch count is zeroed before (a) and
+               read after (b), and must be one or more;
   5. join    — TPC-H Q3's orders filter and lineitem join at SF10: orders
                (15M rows) -> binary_op(o_orderdate < 1995-03-15) ->
                apply_boolean_mask (~7.3M rows) -> join(lineitem[l_orderkey,
@@ -695,6 +701,151 @@ def kernels_vs_plain(gpu: str, cap: int, n_active: int) -> dict:
             >= flops / F32_FLOPS else "operations", "library_ms": library_ms}
 
 
+SEG_ROWS = 1 << 27          # the h2o table's capacity: 1e8 rows padded to 2^27
+SEG_GROUPS = 10_000          # q6's groups (id4 x id5), 10,000 rows each
+
+
+def segment_reduce_inputs(n: int, groups: int, device):
+    """q6's shape on the generic engine: sorted ids of ``groups`` groups of
+    equal size over the first 1e8 rows (or n), then the padding in the
+    overflow segment ``groups``; f64 values."""
+    import torch
+
+    live = min(n, 100_000_000)
+    seg = torch.arange(live, device=device) // -(-live // groups)
+    seg = torch.cat([seg, torch.full((n - live,), groups, device=device)])
+    gen = torch.Generator(device=device).manual_seed(3)
+    vals = torch.rand(n, device=device, generator=gen, dtype=torch.float64) * 100
+    return seg, vals, groups + 1
+
+
+def segment_reduce_vs_plain(gpu: str) -> dict:
+    """The reduce-by-key kernel against its plain version (``scatter_reduce_``)
+    at q6's shape: int64 counts, int64 and f64 min and max (a NaN in one
+    group) in equal bits; the f64 sum within the source's bound of an exact
+    sum (values k / 2^20, whose int64 sum is exact) and the same bits twice.
+    Then the times of the f64 sum: kernel, plain version and
+    ``torch.segment_reduce(lengths=)`` (the library yardstick, which the
+    port never calls), beside the bound of its bytes."""
+    import torch
+
+    from cudf_tpu_torch.kernels import segment_reduce as sr
+
+    dev = torch.device("cuda")
+    seg, vals, nseg = segment_reduce_inputs(SEG_ROWS, SEG_GROUPS, dev)
+    n = seg.numel()
+    before = sr.segment_reduce.launches
+    ones = torch.ones(n, dtype=torch.int64, device=dev)
+    ints = (vals * 1e6).to(torch.int64)
+    nanv = vals.clone()
+    nanv[12_345] = float("nan")
+    for x, reduce, init in ((ones, "sum", 0), (ints, "amin", 2**63 - 1), (ints, "amax", -1),
+                            (nanv, "amin", float("inf")), (nanv, "amax", float("-inf"))):
+        got = sr.segment_reduce(x, seg, nseg, reduce, init)
+        want = sr.segment_reduce_plain(x, seg, nseg, reduce, init)
+        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            raise AssertionError(f"segment_reduce: {reduce} of {x.dtype} differs from "
+                                 f"scatter_reduce_")
+    k = (vals * 2**30).to(torch.int64) - 2**36  # |k| < 2^37
+    x = k.to(torch.float64) / 2**20
+    got = sr.segment_reduce(x, seg, nseg, "sum", 0.0)
+    exact = sr.segment_reduce_plain(k, seg, nseg, "sum", 0).to(torch.float64) / 2**20
+    absum = sr.segment_reduce_plain(k.abs(), seg, nseg, "sum", 0).to(torch.float64) / 2**20
+    d = 29 * 3 + 1  # 3 levels at 2^27 rows
+    bound = d * 2.0**-53 * absum + exact.abs() * 2.0**-53
+    used = float(((got - exact).abs() / bound.clamp(min=1e-300)).max())
+    if used > 1:
+        raise AssertionError(f"segment_reduce: the f64 sum is {used:.3f} of its bound")
+    if not torch.equal(got.view(torch.int64),
+                       sr.segment_reduce(x, seg, nseg, "sum", 0.0).view(torch.int64)):
+        raise AssertionError("segment_reduce: two f64 sums differ")
+    calls = sr.segment_reduce.launches - before
+    if sr.contract_broken():
+        raise AssertionError("segment_reduce: sorted ids set the contract's flag")
+    bad = seg.clone()
+    bad[SEG_ROWS // 2] = -1
+    sr.segment_reduce(vals, bad, nseg, "sum", 0.0)
+    if not sr.contract_broken():
+        raise AssertionError("segment_reduce: an id out of order left the flag clear")
+    log(f"kernels: segment_reduce matches scatter_reduce_ at q6's shape ({n} rows, {nseg} "
+        f"segments): int64 count, int64 and f64 (a NaN) min and max in equal bits; the f64 "
+        f"sum within {used:.4f} of its bound (d = {d}) and the same bits twice ({calls} "
+        f"calls); an id out of order set the contract's flag, sorted ids left it clear")
+
+    ms = cuda_ms(lambda: sr.segment_reduce(vals, seg, nseg, "sum", 0.0))
+    plain_ms = cuda_ms(lambda: sr.segment_reduce_plain(vals, seg, nseg, "sum", 0.0), 5)
+    lengths = torch.bincount(seg, minlength=nseg)
+    library_ms = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths))
+    nbytes = n * (8 + 8) + nseg * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernels: [{gpu}] segment_reduce f64 sum, N={n}, {nseg} segments, sorted ids: "
+        f"kernel {ms:.4f} ms, plain (scatter_reduce_) {plain_ms:.4f} ms, "
+        f"torch.segment_reduce(lengths=) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e9:.4f} GB at 3.35 TB/s), {100 * bound_ms / ms:.1f}% of it")
+    return {"name": "segment_reduce", "route": "cuda",
+            "source": "cudf_tpu_torch/kernels/csrc/segment_reduce.cu",
+            "replaces": "none (torch's scatter_reduce_; the reference uses XLA's segment_sum)",
+            "launches": 0, "max_abs_err": float((got - exact).abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+H2O_ROWS = 4_000_000
+
+
+def segment_reduce_h2o(gpu: str) -> dict:
+    """The db-benchmark's q6 (median and std of v3 by id4 and id5: the
+    generic engine) and q7 (max v1 - min v2 by the string key id3: the sort
+    lane) through the DataFrame on H2O_ROWS rows of G1's distributions (K =
+    100, id3 over 40,000 labels), against pandas; the reduction's launches
+    zeroed before each question and read after it, one or more each.
+    Returns them by question."""
+    import torch
+
+    import cudf_tpu_torch as ctt
+    from cudf_tpu_torch.kernels import segment_reduce as sr
+
+    rng = np.random.default_rng(7)
+    n = H2O_ROWS
+    labels = np.char.add("id", np.char.zfill(np.arange(1, n // 100 + 1).astype(str), 10))
+    pdf = pd.DataFrame({"id3": labels[rng.integers(0, len(labels), n)],
+                        "id4": rng.integers(1, 101, n), "id5": rng.integers(1, 101, n),
+                        "v1": rng.integers(1, 6, n), "v2": rng.integers(1, 16, n),
+                        "v3": rng.uniform(0, 100, n).round(6)})
+    frame = ctt.from_pandas(pdf)
+
+    def q6(df):
+        return df.groupby(["id4", "id5"]).agg({"v3": ["median", "std"]})
+
+    def q7(df):
+        out = df.groupby("id3", as_index=False).agg({"v1": "max", "v2": "min"})
+        out["range_v1_v2"] = out["v1"] - out["v2"]
+        return out[["id3", "range_v1_v2"]]
+
+    launches = {}
+    got = {}
+    for name, q in (("q6", q6), ("q7", q7)):
+        sr.segment_reduce.launches = 0
+        got[name] = q(frame).to_pandas()
+        launches[name] = sr.segment_reduce.launches
+        if launches[name] < 1:
+            raise AssertionError(f"h2o {name}: the segment reduction did not launch")
+    want6 = q6(pdf)
+    want6.columns = ["v3_median", "v3_std"]
+    pd.testing.assert_frame_equal(got["q6"], want6, check_exact=False, rtol=1e-12)
+    want7 = q7(pdf)
+    if not (np.array_equal(got["q7"]["id3"].to_numpy(), want7["id3"].to_numpy())
+            and np.array_equal(got["q7"]["range_v1_v2"].to_numpy(),
+                               want7["range_v1_v2"].to_numpy())):
+        raise AssertionError("h2o q7: differs from pandas")
+    del frame
+    torch.cuda.empty_cache()
+    log(f"kernels: [{gpu}] h2o q6 and q7 through the DataFrame at {n} rows equal pandas "
+        f"(q6 rtol 1e-12, q7 exact, {len(want7)} groups); segment_reduce launches: q6 "
+        f"{launches['q6']}, q7 {launches['q7']}")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 3
 def main_path(gpu: str, df):
     import torch
@@ -754,11 +905,13 @@ def main_path(gpu: str, df):
 
 
 # ---------------------------------------------------------------- phase 4
-def sort_lane(gpu: str, tbl, df) -> None:
+def sort_lane(gpu: str, tbl, df) -> int:
+    """Returns the segment reduction's launches in the argmin lanes."""
     import torch
 
     from cudf_tpu_torch import AggSpec, Column, Table, groupby_aggregate
     from cudf_tpu_torch.kernels import onehot_groupby as k
+    from cudf_tpu_torch.kernels import segment_reduce as sr
 
     kinds = ["sum", "mean", "min", "max", "var"]
     aggs = [AggSpec("l_extendedprice", kind, kind) for kind in kinds]
@@ -821,10 +974,16 @@ def sort_lane(gpu: str, tbl, df) -> None:
     log(f"sort: [{gpu}] warm groupby profile: "
         + device_breakdown(lambda: groupby_aggregate(t, ["l_orderkey"], aggs)))
     before = k.groupby_sum_count.launches
+    sr.segment_reduce.launches = 0
     arg_lanes(gpu, "a", t, df[["l_orderkey", "l_extendedprice"]], ["l_orderkey"])
     arg_lanes(gpu, "b", tbl, full[KEYS + ["l_extendedprice"]], KEYS)
+    launches = sr.segment_reduce.launches
     if k.groupby_sum_count.launches != before:
         raise AssertionError("an argmin/argmax lane launched the one-hot kernel")
+    if launches < 1:
+        raise AssertionError("the argmin/argmax lanes did not launch the segment reduction")
+    log(f"argmin: segment_reduce launches in (a) and (b): {launches}")
+    return launches
 
 
 ARG_RUNS = 2  # warm runs a lane, in turns: each lane once forward, then once backward
@@ -4147,6 +4306,9 @@ def main() -> int:
     from cudf_tpu_torch.utils.padding import bucket_capacity
 
     onehot = kernels_vs_plain(gpu, bucket_capacity(n_active), n_active)
+    segred = segment_reduce_vs_plain(gpu)
+    torch.cuda.empty_cache()
+    segred["h2o_launches"] = segment_reduce_h2o(gpu)
     tbl, onehot["launches"], readme_out = main_path(gpu, df)
     dist_readme(gpu, tbl, readme_out)
     nested_intervals(gpu, tbl, df)
@@ -4158,7 +4320,7 @@ def main() -> int:
     frame_s += frame_series(gpu, df, frame)
     accel_readme(gpu, df, frame)
     del frame
-    sort_lane(gpu, tbl, df)
+    segred["launches"] = sort_lane(gpu, tbl, df)
     nested_collect(gpu, df)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ooc_") as tmp:
         onehot["ooc_launches"], ooc_budget, ooc_s = ooc_readme(gpu, df, tbl, readme_out,
@@ -4253,9 +4415,16 @@ def main() -> int:
     log(f"phases: [{gpu}] wide keys {WIDE['seconds']:.1f} s (host clock, data, pandas "
         f"oracles and checks included: the sparse two-key groupby both ways, lineitem by "
         f"l_extendedprice, each lane's warm times and profiles)")
+    from cudf_tpu_torch.kernels import segment_reduce as sr
+
+    if sr.contract_broken():
+        raise AssertionError("a segment_reduce call on the card passed ids out of order or "
+                             "out of range")
+    log("kernels: every segment_reduce launch since phase 2 kept the contract (ids "
+        "non-decreasing, in range)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
-    log(json.dumps({"kernels": [onehot, probe, check]}))
+    log(json.dumps({"kernels": [onehot, probe, check, segred]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

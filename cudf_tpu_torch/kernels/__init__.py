@@ -10,6 +10,10 @@
   distinct_hash_join.cu).
 * ``launch_check`` — ``o = 2·x``, on no engine path: the counterpart of
   the launch-and-return repro ``benchmarks/pallas_tunnel_repro.py``.
+* ``segment_reduce`` — the per-segment sum/prod/min/max of every groupby
+  lane over key-sorted rows: a reduce-by-key with no atomics. It replaces
+  no Pallas kernel (the reference leaves segment reductions to XLA); it
+  replaces torch's ``scatter_reduce_``, one atomic a row.
 
 The reference keeps its Pallas kernels behind an opt-in switch for a
 TPU-only reason; here a CUDA tensor always takes the kernel, and a CPU
@@ -51,6 +55,9 @@ PROTOTYPES = {
     "onehot_groupby": {
         "onehot_groupby_blocks": ([_LL, _I, _I, _I, ctypes.POINTER(_I)], _I),
         "onehot_groupby_sum_count": ([_P] * 5 + [_LL, _I, _I, _I, _I, _P], _I)},
+    "segment_reduce": {
+        "segment_reduce_scratch": ([_LL], _LL),
+        "segment_reduce": ([_P, _P, _LL, _LL, _I, _I] + [_P] * 6, _I)},
 }
 
 

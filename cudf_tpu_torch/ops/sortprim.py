@@ -19,6 +19,9 @@ from typing import Sequence
 
 import torch
 
+from ..kernels import segment_reduce as _segment_kernel
+from ..utils.tracing import annotate
+
 
 def _posbits(cap: int) -> int:
     return max(1, (cap - 1).bit_length())
@@ -69,10 +72,16 @@ def segment_reduce(vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
                    reduce: str, init) -> torch.Tensor:
     """Per-segment reduction (``"sum"``, ``"prod"``, ``"amin"``, ``"amax"``)
     of ``vals`` by int64 segment id; ``init`` is the value of an empty
-    segment and takes part in every segment. Ids must lie in
-    [0, num_segments): callers send padding to an overflow segment."""
-    out = torch.full((num_segments,), init, dtype=vals.dtype, device=vals.device)
-    return out.scatter_reduce_(0, seg, vals, reduce, include_self=True)
+    segment and takes part in every segment. Ids must be non-decreasing
+    and lie in [0, num_segments): callers reduce key-sorted rows and send
+    padding to an overflow segment at the end. A CUDA tensor takes the
+    reduce-by-key kernel (``kernels/segment_reduce.py``), which does not
+    stop at ids out of order: its answer is then wrong, and it only sets
+    the flag that ``kernels.segment_reduce.contract_broken()`` reads. On
+    the CPU the ids' order is checked, and decreasing ids raise. One
+    ``segment_reduce`` range a call."""
+    with annotate("segment_reduce"):
+        return _segment_kernel.segment_reduce(vals, seg, num_segments, reduce, init)
 
 
 def segmented_scan(vals: torch.Tensor, newseg: torch.Tensor, combine) -> torch.Tensor:

@@ -61,7 +61,11 @@ The ranges, where each opens, and the benchmark metric that reads it
   ``groupby.sort`` (``aggregate_sorted``) or ``groupby.generic``
   (``_aggregate_impl``). No metric reads it;
 - ``groupby_head``: ``frame/groupby.py:DataFrameGroupBy.head``, the
-  grouped row number and the compaction; ``groupby_head_share``.
+  grouped row number and the compaction; ``groupby_head_share``;
+- ``segment_reduce``: ``ops/sortprim.py:segment_reduce``, one per-segment
+  reduction over key-sorted rows (the output's fill and the
+  reduce-by-key kernel), inside whichever groupby lane called it;
+  ``segreduce_device_share`` reads the device time launched inside it.
 """
 from __future__ import annotations
 

@@ -1,0 +1,16 @@
+"""segreduce_device_share: the device time of the operations launched
+inside the outermost ``segment_reduce`` ranges (``ops/sortprim.py``'s
+per-segment reduction of every groupby lane over key-sorted rows: the
+output's fill and the reduction), in % of the traced window. None where
+the trace holds no such range (a program without it) or no device
+operation (a run on the CPU)."""
+from portbench.harness import trace as tr
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace.device:
+        return None
+    spans = tr.outermost(ctx.trace, "segment_reduce")
+    if not spans:
+        return None
+    return 100 * tr.device_s_launched_in(ctx.trace, spans) / ctx.trace.window_s

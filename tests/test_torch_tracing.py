@@ -376,6 +376,43 @@ def test_head_opens_one_range_a_call_around_its_compaction(monkeypatch):
     pd.testing.assert_frame_equal(got.to_pandas(), pdf.groupby("k").head(1))
 
 
+# ------------------------------------------------------ segment reductions
+def test_segment_reduce_opens_one_range_a_call(monkeypatch):
+    from cudf_tpu_torch.ops.sortprim import segment_reduce
+
+    seg = torch.tensor([0, 0, 1, 3])
+    vals = torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.float64)
+    syncs = _no_sync(monkeypatch)
+    got, events = _traced(lambda: [segment_reduce(vals, seg, 4, r, 1.0)
+                                   for r in ("sum", "prod", "amin")])
+    assert [g.tolist() for g in got] == [[4.0, 4.0, 1.0, 5.0], [2.0, 3.0, 1.0, 4.0],
+                                         [1.0, 1.0, 1.0, 1.0]]
+    assert len(_named(events, "segment_reduce")) == 3
+    assert syncs == []
+
+
+def test_q6_through_the_frame_opens_eight_reductions(monkeypatch):
+    """The db-benchmark's q6 (median and std of v3 by id4 and id5) on the
+    generic engine: the groups' first rows and sizes, the median's valid
+    count, then its own count and group starts, the std's count, sum and
+    centered squares."""
+    rng = np.random.default_rng(6)
+    n = 300
+    pdf = pd.DataFrame({"id4": rng.integers(1, 4, n), "id5": rng.integers(1, 5, n),
+                        "v3": rng.uniform(0, 100, n).round(6)})
+    df = DataFrame.from_pandas(pdf, device="cpu")
+    syncs = _no_sync(monkeypatch)
+    got, events = _traced(lambda: df.groupby(["id4", "id5"]).agg(
+        {"v3": ["median", "std"]}))
+    reductions = _named(events, "segment_reduce")
+    assert len(reductions) == 8
+    assert all("groupby.generic" in _ancestors(e) for e in reductions)
+    assert syncs == []
+    want = pdf.groupby(["id4", "id5"]).agg({"v3": ["median", "std"]})
+    want.columns = ["v3_median", "v3_std"]
+    pd.testing.assert_frame_equal(got.to_pandas(), want)
+
+
 # ------------------------------------------------------- with no profiler
 def test_without_a_profiler_results_are_unchanged_and_nothing_prints(capsys):
     pdf = pd.DataFrame({"k": [3, 1, 2, 1], "v": [1.0, 2.0, 3.0, 4.0]})
