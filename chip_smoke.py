@@ -29,8 +29,8 @@ Phases (each prints a line; any failure raises and exits nonzero):
                against pandas; the one-hot kernel must not launch. Then
                argmin and argmax of l_extendedprice at (a) those 16M rows by
                l_orderkey and (b) phase 3's 60M rows by [l_returnflag,
-               l_linestatus]: fastgroup.fast_groupby, sortgroup.sort_groupby,
-               widegroup.wide_groupby and groupby.generic_groupby called
+               l_linestatus]: sortgroup.sort_groupby, widegroup.wide_groupby
+               and groupby.generic_groupby called
                directly on the same input, each answer exact against pandas'
                idxmin/idxmax and the lanes bit for bit against each other;
                their warm times in turns (best of ARG_RUNS), the lane that
@@ -938,12 +938,13 @@ def sort_lane(gpu: str, tbl, df) -> int:
     np.testing.assert_array_equal(out["l_orderkey"].to_numpy(), want["l_orderkey"].to_numpy())
     np.testing.assert_array_equal(out["min"].to_numpy(np.float64), want["min"].to_numpy())
     np.testing.assert_array_equal(out["max"].to_numpy(np.float64), want["max"].to_numpy())
-    # Each group's sum adds only its own rows (fastgroup.GroupSums), so a
-    # term of a group of m rows goes through at most m - 1 additions in any
-    # order: the error is within c·eps·Σ_group|x| with c = m, the group's
-    # own row count (1 to 7 here). The sum is then rounded to f32 (2^-23
-    # relative); mean is the f64 sum over the count. The var is two-pass (a
-    # sum of (x - group mean)^2), within c·eps·Σ_group x² of its M2.
+    # Each group's sum adds only its own rows (sortprim.segment_reduce, the
+    # reduce-by-key kernel), so a term of a group of m rows goes through at
+    # most m - 1 additions in any order: the error is within c·eps·Σ_group|x|
+    # with c = m, the group's own row count (1 to 7 here). The sum is then
+    # rounded to f32 (2^-23 relative); mean is the f64 sum over the count.
+    # The var is two-pass (a sum of (x - group mean)^2), within
+    # c·eps·Σ_group x² of its M2.
     eps = np.finfo(np.float64).eps
     _, inv = np.unique(df["l_orderkey"].to_numpy(), return_inverse=True)
     cnt = want["count"].to_numpy()
@@ -987,7 +988,7 @@ def sort_lane(gpu: str, tbl, df) -> int:
 
 
 ARG_RUNS = 2  # warm runs a lane, in turns: each lane once forward, then once backward
-ARG_LANES = ("fast_groupby", "sort_groupby", "wide_groupby", "generic_groupby")
+ARG_LANES = ("sort_groupby", "wide_groupby", "generic_groupby")
 
 
 def _dispatched(fn):
@@ -998,7 +999,7 @@ def _dispatched(fn):
     answered = []
     # the wide lane counts its own answers (wide_groupby.launches)
     patched = [(fastgroup, "_onehot_groupby"), (sortgroup, "sort_groupby"),
-               (fastgroup, "fast_groupby"), (gb, "generic_groupby")]
+               (gb, "generic_groupby")]
     inners = [getattr(m, n) for m, n in patched]
     wide = widegroup.wide_groupby.launches
 
@@ -1032,14 +1033,14 @@ def arg_lanes(gpu: str, what: str, tbl, frame, keys) -> None:
     import torch
 
     from cudf_tpu_torch import AggSpec, groupby_aggregate
-    from cudf_tpu_torch.ops import fastgroup, sortgroup, widegroup
+    from cudf_tpu_torch.ops import sortgroup, widegroup
     from cudf_tpu_torch.ops import groupby as gb
 
     t_start = time.perf_counter()
     aggs = [AggSpec("l_extendedprice", "argmin", "argmin"),
             AggSpec("l_extendedprice", "argmax", "argmax")]
-    fns = {"fast_groupby": fastgroup.fast_groupby, "sort_groupby": sortgroup.sort_groupby,
-           "wide_groupby": widegroup.wide_groupby, "generic_groupby": gb.generic_groupby}
+    fns = {"sort_groupby": sortgroup.sort_groupby, "wide_groupby": widegroup.wide_groupby,
+           "generic_groupby": gb.generic_groupby}
     lanes = {n: (lambda f=fns[n]: f(tbl, keys, aggs, True)) for n in ARG_LANES}
     answers = {}
     for name, fn in lanes.items():
@@ -1060,13 +1061,13 @@ def arg_lanes(gpu: str, what: str, tbl, frame, keys) -> None:
         raise AssertionError(f"argmin {what}: the dispatch's lanes {answered}")
     answers["groupby_aggregate"] = _host_columns(out)
     del out
-    first = answers["fast_groupby"]
+    first = answers["sort_groupby"]
     for name, got in answers.items():
         for col, (w, wn) in first.items():
             g, gn = got[col]
             if not (np.array_equal(g, w) and np.array_equal(gn, wn)):
                 raise AssertionError(f"argmin {what}: {name}'s {col} differs from "
-                                     f"fast_groupby's")
+                                     f"sort_groupby's")
     p = frame["l_extendedprice"]
     t0 = time.perf_counter()
     want = frame[p.notna()].groupby(keys, sort=True)["l_extendedprice"].agg(
@@ -1082,24 +1083,19 @@ def arg_lanes(gpu: str, what: str, tbl, frame, keys) -> None:
         if not np.array_equal(first[col][0][has], want[ref].to_numpy(np.int64)):
             raise AssertionError(f"argmin {what}: {col} differs from pandas' {ref}")
     best = {n: min(ts) for n, ts in times.items()}
-    spread = abs(times["fast_groupby"][0] - times["fast_groupby"][1])
-    lead = best["sort_groupby"] - best["fast_groupby"]
     line = ", ".join(f"{n} {' / '.join(f'{t:.2f}' for t in ts)} ms"
                      for n, ts in times.items())
     log(f"argmin {what}: [{gpu}] {tbl.num_rows} rows by {keys} -> {len(first['argmin'][0])} "
         f"groups; argmin and argmax of l_extendedprice equal pandas' idxmin/idxmax in "
         f"all {int(has.sum())} groups with a value, and the {len(answers)} answers "
-        f"(4 lanes and the dispatch) equal bit for bit in every group; "
+        f"({len(ARG_LANES)} lanes and the dispatch) equal bit for bit in every group; "
         f"{time.perf_counter() - t_start:.1f} s so far, pandas {oracle_s:.1f} s of it "
         f"(host clock)")
     log(f"argmin {what}: [{gpu}] warm, host clock ending in a synchronize, in turns: "
         f"{line}")
-    log(f"argmin {what}: [{gpu}] fast_groupby leads sort_groupby by {lead:.2f} ms "
-        f"(best of {ARG_RUNS}) against its own spread {spread:.2f} ms: "
-        f"{'beats it' if lead > spread else 'does not beat it'} (fast_groupby is "
-        f"sort_groupby behind the reference's refusal check); fastest lane "
-        f"{min(best, key=best.get)}; groupby_aggregate takes {answered[0]}")
     winner = min(best, key=best.get)
+    log(f"argmin {what}: [{gpu}] fastest lane {winner} (best of {ARG_RUNS}); "
+        f"groupby_aggregate takes {answered[0]}")
     log(f"argmin {what}: [{gpu}] {winner} device breakdown: "
         + device_breakdown(lanes[winner]))
 

@@ -17,7 +17,14 @@ run; the error bound is in the source). It was added because torch's
 ``scatter_reduce_`` takes one atomic a row, and sorted ids send runs of
 rows to one address. On a CPU tensor it checks that the ids do not
 decrease and runs ``segment_reduce_plain``, which is that
-``scatter_reduce_`` and the kernel's oracle.
+``scatter_reduce_`` and the kernel's oracle: it folds each segment's rows
+in row order, so a term of a segment of m rows goes through at most
+m - 1 additions and a float sum is within (m - 1)·eps·Σ_segment|x|.
+
+Every groupby lane's per-group sums and counts are this function's sums,
+and hold its two promises on either device: a segment combines only its
+own rows (a NaN or a large running total in one group reaches no other),
+and a float sum takes one fixed order, the same bits on every run.
 
 The kernel does not stop at ids that break the contract (its results are
 then wrong): it sets a flag, which ``contract_broken()`` reads, so that

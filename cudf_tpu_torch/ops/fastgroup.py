@@ -7,9 +7,10 @@ Counterpart of ``cudf_tpu/ops/fastgroup.py``:
      cached column stats (core/stats.py);
   2. codes pack lexicographically into one int64 slot; a stable sort by the
      slot makes groups contiguous and in key order (pandas sort=True);
-  3. sums and counts are per-group sums over the sorted rows
-     (``GroupSums``); min/max and the other order statistics are per-group
-     reductions.
+  3. every aggregate, sums and counts included (``group_sums``), is a
+     per-group reduction over the sorted rows by ``sortprim.segment_reduce``,
+     whose module (``kernels/segment_reduce.py``) states what a group's sum
+     promises.
 
 ``_onehot_groupby`` (the reference's ``_pallas_onehot_groupby``) sends
 <= 2048-slot keys with f32 sum/mean/count/size to the hand-written kernel
@@ -29,7 +30,7 @@ from ..core.dtypes import Kind
 from ..core.table import Table
 from ..utils.padding import bucket_capacity
 from ..utils.tracing import annotate
-from .sortprim import _posbits, segment_reduce, tiled_cumsum
+from .sortprim import segment_reduce, tiled_cumsum
 
 _SUPPORTED = {
     "sum", "product", "min", "max", "count", "size", "any", "all", "mean",
@@ -39,14 +40,6 @@ _SUPPORTED = {
 ONEHOT_KINDS = {"sum", "mean", "count", "size"}
 ONEHOT_MAX_BITS = 11  # 2^11 = 2048 slots: kernels/onehot_groupby.MAX_GROUPS
 
-# GroupSums plans: pieces of <= _PIECE rows for groups of _LARGE rows or
-# more on average, else blocks of _BLOCK rows (log2(_BLOCK) scan steps).
-# The plans were timed at the two ends (9.8M groups of ~1.6 rows, six of
-# ~10M rows); _LARGE between them was not measured at its crossover.
-_PIECE = 1024
-_LARGE = 256
-_BLOCK = 16
-_STEPS = tuple(1 << i for i in range(_BLOCK.bit_length() - 1))
 _I32MAX = int(np.iinfo(np.int32).max)
 _I64_MIN = -(1 << 63)
 
@@ -154,91 +147,11 @@ def _acc_dtype_from(sv: torch.Tensor) -> torch.dtype:
     return torch.float64 if sv.is_floating_point() else torch.int64
 
 
-class GroupSums:
-    """Per-group sums of key-sorted rows, built once for a grouping and
-    applied to each value column. The groups are contiguous from row 0,
-    ``lengths`` rows each (``n_rows`` in all), ``seg`` holds each row's
-    group id, and rows past ``n_rows`` are ignored.
-
-    A float group adds only its own rows, in a fixed order, in one of two
-    plans chosen from the group sizes:
-
-      * groups of ``_LARGE`` rows or more on average (q1's six groups of
-        60M rows): each group is cut at every ``_PIECE``-th row of the
-        table, ``segment_reduce`` sums the pieces, then each group's
-        pieces;
-      * smaller groups (a groupby on order keys): rows are cut into blocks
-        of ``_BLOCK``, a segmented scan of log2(_BLOCK) steps sums each
-        group's piece of each block (a step adds a row's partner only when
-        both lie in one group), and a group that spans blocks adds its
-        pieces with ``segment_reduce``; one launch a group would cost
-        more than the scan.
-
-    Either way the same input gives the same bits on every run, and a
-    group adds only its own rows: a term of a group of m rows goes through
-    at most m - 1 additions, so the error is within (m - 1)·eps·Σ_group|x|
-    whatever the plan, never a prefix over the table. The depth is far
-    less in the blocks plan (log2(_BLOCK) scan steps, then its pieces), but
-    ``segment_reduce`` adds a thread's items one after another, so the
-    pieces plan (up to _PIECE - 1 within a piece, then the group's pieces:
-    ~58k for q1) keeps no bound of log2 depth. An integer group is exact
-    as a difference of prefix sums."""
-
-    def __init__(self, seg: torch.Tensor, lengths: torch.Tensor, n_rows: int):
-        self.seg, self.lengths, self.n_rows = seg, lengths, n_rows
-        self._plan = None
-
-    def _pieces_plan(self):
-        n, dev = self.n_rows, self.seg.device
-        starts = torch.cumsum(self.lengths, 0) - self.lengths
-        cuts = torch.unique(torch.cat([starts, torch.arange(0, n, _PIECE, device=dev)]))
-        owner = torch.searchsorted(starts, cuts, right=True) - 1
-        return ("pieces", torch.diff(cuts, append=cuts.new_full((1,), n)),
-                torch.bincount(owner, minlength=self.lengths.numel()))
-
-    def _blocks_plan(self):
-        n, B = self.n_rows, _BLOCK
-        nb = -(-n // B)
-        ss = torch.nn.functional.pad(self.seg[:n], (0, nb * B - n), value=-1).view(nb, B)
-        same = [ss[:, d:] == ss[:, :-d] for d in _STEPS]
-        last = torch.ones_like(ss, dtype=torch.bool)
-        last[:, :-1] = ss[:, 1:] != ss[:, :-1]
-        ends = torch.nonzero((last & (ss >= 0)).reshape(-1)).squeeze(1)
-        pseg = ss.reshape(-1)[ends]
-        npieces = torch.bincount(pseg, minlength=self.lengths.numel())
-        single = npieces[pseg] == 1
-        one_src = torch.nonzero(single).squeeze(1)
-        multi_grp = torch.nonzero(npieces > 1).squeeze(1)
-        return ("blocks", nb, same, ends, one_src, pseg[one_src],
-                torch.nonzero(~single).squeeze(1), multi_grp, npieces[multi_grp])
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        n_groups, n = self.lengths.numel(), self.n_rows
-        if n_groups == 0:
-            return x.new_zeros(0)
-        if not x.is_floating_point():
-            hi = tiled_cumsum(x[:n])[torch.cumsum(self.lengths, 0) - 1]
-            return hi - torch.cat([hi.new_zeros(1), hi[:-1]])
-        if self._plan is None:
-            self._plan = (self._pieces_plan() if n >= _LARGE * n_groups
-                          else self._blocks_plan())
-        if self._plan[0] == "pieces":
-            _, piece_len, per_group = self._plan
-            pieces = torch.segment_reduce(x[:n], "sum", lengths=piece_len)
-            return torch.segment_reduce(pieces, "sum", lengths=per_group)
-        _, nb, same, ends, one_src, one_dst, multi_src, multi_grp, multi_len = self._plan
-        xs = x.new_zeros(nb * _BLOCK)
-        xs[:n] = x[:n]  # a copy: the scan below runs in place
-        xs = xs.view(nb, _BLOCK)
-        for d, m in zip(_STEPS, same):
-            xs[:, d:] += torch.where(m, xs[:, :-d], 0.0)
-        pieces = xs.reshape(-1)[ends]
-        out = x.new_zeros(n_groups)
-        out[one_dst] = pieces[one_src]
-        if multi_grp.numel():
-            out[multi_grp] = torch.segment_reduce(pieces[multi_src], "sum",
-                                                  lengths=multi_len)
-        return out
+def group_sums(x: torch.Tensor, seg: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Each group's sum of ``x`` over key-sorted rows: ``seg`` holds each
+    row's group id, ``n_groups`` for an inactive row (an overflow segment,
+    left out). Integer sums are exact (int64 wraps as two's complement)."""
+    return segment_reduce(x, seg, n_groups + 1, "sum", 0)[:n_groups]
 
 
 def _reducible(sv: torch.Tensor):
@@ -268,30 +181,29 @@ def _as_acc(sv: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
     return sv.to(acc)
 
 
-def build_scan_arrays(sv, svalid, act, seg, n_groups, sums: GroupSums,
-                      kset) -> Dict[str, torch.Tensor]:
+def build_scan_arrays(sv, svalid, act, seg, n_groups, kset) -> Dict[str, torch.Tensor]:
     """Per-group arrays (length n_groups) of one value column over
-    KEY-SORTED rows, active rows first: ``g_*`` are sums (``sums``, the
-    grouping's GroupSums), the rest per-group reductions; ``sv`` and
-    ``valid`` are the sorted rows. ``seg`` is each row's group id,
-    ``n_groups`` for inactive rows (an overflow segment)."""
+    KEY-SORTED rows, active rows first: ``g_*`` are sums (``group_sums``),
+    the rest per-group reductions; ``sv`` and ``valid`` are the sorted
+    rows. ``seg`` is each row's group id, ``n_groups`` for inactive rows
+    (an overflow segment)."""
     valid = act if svalid is None else act & svalid
     nseg = n_groups + 1
     rowpos = torch.arange(sv.shape[0], device=sv.device)
     arrs: Dict[str, torch.Tensor] = {"sv": sv, "valid": valid}
-    arrs["g_cnt"] = sums(valid.to(torch.int64))
+    arrs["g_cnt"] = group_sums(valid.to(torch.int64), seg, n_groups)
     if kset & {"sum", "mean", "var", "std", "m2", "sum_of_squares"}:
         acc = _acc_dtype_from(sv)
         x = torch.where(valid, _as_acc(sv, acc), torch.zeros((), dtype=acc,
                                                               device=sv.device))
-        arrs["g_sum"] = sums(x)
+        arrs["g_sum"] = group_sums(x, seg, n_groups)
         if "sum_of_squares" in kset:
-            arrs["g_sos"] = sums(x * x)
+            arrs["g_sos"] = group_sums(x * x, seg, n_groups)
         if kset & {"var", "std", "m2"}:
             # two-pass M2 (reference: group_m2.cu): center by the group mean
             mean = arrs["g_sum"].to(torch.float64) / arrs["g_cnt"].clamp(min=1)
             c = torch.where(valid, sv.to(torch.float64) - _at_group(mean, seg), 0.0)
-            arrs["g_m2"] = sums(c * c)
+            arrs["g_m2"] = group_sums(c * c, seg, n_groups)
     if "product" in kset:
         acc = _acc_dtype_from(sv)
         x = torch.where(valid, _as_acc(sv, acc), torch.ones((), dtype=acc,
@@ -358,22 +270,6 @@ def _at_group(arr: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     return torch.cat([arr, arr.new_zeros(1)])[seg]
 
 
-def fast_groupby(tbl: Table, keys: Sequence[str], aggs, dropna_keys: bool) -> Optional[Table]:
-    """Code-sort groupby; None when this plan doesn't apply. The
-    reference's lane for argmin/argmax, off the port's dispatch: it refuses
-    where the reference refuses (codes wider than 62 bits less the row
-    position's), then answers from ``sortgroup.sort_groupby``, whose word is
-    the same whenever these codes fit."""
-    from .sortgroup import sort_groupby  # sortgroup imports this module
-
-    if not all(s.kind in _SUPPORTED for s in aggs):
-        return None
-    kcols = [tbl[k] for k in keys]
-    if plan_codes(kcols, max_bits=62 - _posbits(kcols[0].capacity)) is None:
-        return None
-    return sort_groupby(tbl, keys, aggs, dropna_keys)
-
-
 def aggregate_sorted(tbl: Table, keys: Sequence[str], aggs, pos: torch.Tensor,
                      act: torch.Tensor, newgrp: torch.Tensor):
     """The aggregates of rows sorted by key: ``pos`` is each sorted row's
@@ -384,14 +280,12 @@ def aggregate_sorted(tbl: Table, keys: Sequence[str], aggs, pos: torch.Tensor,
     n_groups, n_active = torch.stack([newgrp.sum(), act.sum()]).tolist()
     seg = torch.where(act, tiled_cumsum(newgrp) - 1, n_groups)
     starts, lengths = group_starts(newgrp, n_active)
-    sums = GroupSums(seg, lengths, n_active)
     one = [s for s in aggs if s.kind != "corr"]
     vcols, kinds, agg_vidx = _value_columns(tbl, keys, one)
     arrs_by_col = []
     for c, kset in zip(vcols, kinds):
         sval = c.validity[pos] if c.validity is not None else None
-        arrs_by_col.append(build_scan_arrays(c.data[pos], sval, act, seg, n_groups,
-                                             sums, kset))
+        arrs_by_col.append(build_scan_arrays(c.data[pos], sval, act, seg, n_groups, kset))
     out = {}
     for spec, vidx in zip(one, agg_vidx):
         out[spec.out_name] = _finish_agg(spec, arrs_by_col[vidx], vcols[vidx],
@@ -401,14 +295,14 @@ def aggregate_sorted(tbl: Table, keys: Sequence[str], aggs, pos: torch.Tensor,
         with annotate("groupby.corr"):
             for spec in corr:
                 out[spec.out_name] = grouped_corr(tbl[spec.column], tbl[spec.other], pos,
-                                                  act, seg, n_groups, sums)
+                                                  act, seg, n_groups, n_active)
     return out, starts, n_groups
 
 
 def _exact_moments(xcol: Column, ycol: Column, n_rows: int) -> bool:
     """Whether the integer moments of ``grouped_corr`` fit in int64: both
     columns integral, and n_rows² · max|x|·max|y| (also with x = y) below
-    2^62, which bounds every prefix sum and every n·Σxy − Σx·Σy."""
+    2^62, which bounds every group's sum and every n·Σxy − Σx·Σy."""
     if not all(c.dtype.kind in (Kind.INT, Kind.UINT) and c.data.dtype != torch.uint64
                for c in (xcol, ycol)):
         return False
@@ -422,10 +316,10 @@ def _exact_moments(xcol: Column, ycol: Column, n_rows: int) -> bool:
 
 
 def grouped_corr(xcol: Column, ycol: Column, pos: torch.Tensor, act: torch.Tensor,
-                 seg: torch.Tensor, n_groups: int, sums: GroupSums) -> Column:
+                 seg: torch.Tensor, n_groups: int, n_rows: int) -> Column:
     """Each group's Pearson correlation of ``xcol`` and ``ycol`` over rows
     sorted by key (``pos``: each sorted row's original index; ``act``: rows
-    in a group; ``seg``: the group id; ``sums``: the grouping's GroupSums),
+    in a group, ``n_rows`` of them, leading; ``seg``: the group id),
     as pandas: only rows where both values are valid and not NaN, and null
     for a group with fewer than two such rows or with every such value of
     a column equal (zero variance).
@@ -440,7 +334,7 @@ def grouped_corr(xcol: Column, ycol: Column, pos: torch.Tensor, act: torch.Tenso
     of m rows, at most (m + 3)·eps·sqrt(Sxx·Syy) by Cauchy-Schwarz, so r's
     absolute error stays within ~(m + 5)·eps and its relative error grows
     as 1/|r| near 0 (pandas' one-pass update has the same order). Every
-    sum is a GroupSums sum: the same bits on every run. The callers open
+    sum is a ``group_sums`` sum: the same bits on every run. The callers open
     one ``groupby.corr`` range around a groupby's correlations."""
     dev = pos.device
     x, y = xcol.data[pos], ycol.data[pos]
@@ -452,8 +346,12 @@ def grouped_corr(xcol: Column, ycol: Column, pos: torch.Tensor, act: torch.Tenso
             ok = ok & ~torch.isnan(v)
     same = xcol is ycol
     seg = torch.where(act, seg, n_groups)
+
+    def sums(v):
+        return group_sums(v, seg, n_groups)
+
     n = sums(ok.to(torch.int64))
-    if _exact_moments(xcol, ycol, sums.n_rows):
+    if _exact_moments(xcol, ycol, n_rows):
         xi = torch.where(ok, x.to(torch.int64), 0)
         yi = xi if same else torch.where(ok, y.to(torch.int64), 0)
         sx = sums(xi)

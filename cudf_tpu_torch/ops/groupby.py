@@ -10,8 +10,9 @@ Dispatch, in order:
      behind an opt-in switch and reaches its sort lane first;
   2. the single-word code sort (``sortgroup.sort_groupby``), every kind
      the code-sort aggregates take, argmin/argmax included. The reference
-     answers those two from a third lane, ``fastgroup.fast_groupby``; the
-     port keeps that function, off the dispatch;
+     answers those two from a third lane, ``fastgroup.fast_groupby``, which
+     sorts the same rows by the same word where its narrower plan fits and
+     has no counterpart here;
   3. the wide-key lane (``widegroup.wide_groupby``): sparse 64-bit ids and
      full-range floats in at most three packed words, no range assumption;
   4. the generic engine below (``generic_groupby``): a stable
@@ -210,11 +211,10 @@ def _aggregate_impl(kcols, vcols, keynames, aggs, out_cap, perm, seg,
     if corr:
         with annotate("groupby.corr"):
             # the live rows lead, each group's rows together
-            lengths = counts_all[:n_groups]
-            sums = fastgroup.GroupSums(seg_c, lengths, int(lengths.sum().item()))
+            n_rows = int(counts_all[:n_groups].sum().item())
             for spec, vcol, ocol in corr:
                 out[spec.out_name] = fastgroup.grouped_corr(vcol, ocol, perm, inb_sorted,
-                                                            seg_c, n_groups, sums)
+                                                            seg_c, n_groups, n_rows)
     return out
 
 

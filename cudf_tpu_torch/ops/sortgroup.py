@@ -7,15 +7,16 @@
   2. one stable sort by that word, as int64: below 63 code bits the word
      is non-negative and sorts as it is; at 63 its top bit is flipped, so
      that signed order is the word's unsigned order;
-  3. sums, counts and M2 are per-group sums over the sorted rows, each
-     adding only its own group's rows in a fixed order, and the order
-     statistics per-group reductions (``fastgroup.aggregate_sorted``);
+  3. every aggregate, sums, counts and M2 included, is a per-group
+     reduction over the sorted rows (``fastgroup.aggregate_sorted``) by
+     ``sortprim.segment_reduce``, whose module (``kernels/segment_reduce.py``)
+     states what a group's sum promises;
   4. each group's first row, in key order, carries the key word.
 
 The reference takes a group's sum as the difference of two prefix sums
 over the whole sorted table, which spreads a NaN into every later group and
-costs a small group the precision of the running total; the sums here do
-neither.
+costs a small group the precision of the running total; a segment
+reduction does neither.
 
 The reference also splits this path past ``SORT_OPERAND_MAX`` to cap TPU
 compile time; the GPU has no such limit and runs one path, whose results
@@ -34,9 +35,9 @@ from . import fastgroup
 from .fastgroup import _I64_MIN
 
 # every kind of fastgroup.aggregate_sorted, argmin/argmax included (the
-# reference leaves those two to fastgroup.fast_groupby, which sorts the same
-# rows by a narrower word and was no faster on the H100), and corr, which
-# the other sorted lanes do not take
+# reference leaves those two to its fastgroup.fast_groupby, which sorts the
+# same rows by a narrower word and was no faster on the H100), and corr,
+# which the other sorted lanes do not take
 _SUPPORTED = fastgroup._SUPPORTED | {"corr"}
 
 MAX_CODE_BITS = 63  # one 64-bit word minus the inactive-sentinel bit

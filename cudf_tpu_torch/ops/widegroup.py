@@ -20,7 +20,8 @@ that plan; this lane groups them with no range assumption:
   4. group starts are where adjacent sorted words differ; every payload is
      gathered once by the permutation, and the aggregates are the code-sort
      lanes' own (``fastgroup.build_scan_arrays`` and ``_finish_agg``), so
-     ``var``, ``first`` or ``argmin`` mean the same on every lane.
+     ``var``, ``first`` or ``argmin`` mean the same on this lane and the
+     code-sort lanes (the generic engine computes its own).
 
 The reference carries every payload through each sort pass, because
 gathers were slow on its stack; here one gather a payload follows the

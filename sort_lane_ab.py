@@ -10,16 +10,17 @@ the checkout's own code and times, warm, with the host clock ending in a
 synchronize:
 
   - ``groupby``: chip_smoke.py's phase 4 query, groupby_aggregate of the
-    first CUT_ROWS rows by l_orderkey with sum/mean/min/max/var;
-  - ``a.<lane>`` and ``b.<lane>``: argmin and argmax of l_extendedprice
-    through ``fastgroup.fast_groupby`` and ``sortgroup.sort_groupby`` called
-    directly, at chip_smoke.py's arg_lanes shapes: (a) those CUT_ROWS rows by
-    l_orderkey, (b) all ROWS rows by [l_returnflag, l_linestatus]. A lane
-    that refuses (returns None) is left out; two lanes that answer must
-    agree bit for bit.
+    first CUT_ROWS rows by l_orderkey with sum/mean/min/max/var (groups of
+    about four rows);
+  - ``keys.groupby``: the same aggregates of all ROWS rows by
+    [l_returnflag, l_linestatus] (four groups of millions of rows);
+  - ``a.sort_groupby`` and ``b.sort_groupby``: argmin and argmax of
+    l_extendedprice through ``sortgroup.sort_groupby`` called directly, at
+    chip_smoke.py's arg_lanes shapes: (a) those CUT_ROWS rows by
+    l_orderkey, (b) all ROWS rows by [l_returnflag, l_linestatus].
 
 Each timing is taken RUNS times, the lanes in turns, and reported whole.
-The process also takes one torch.profiler table of each lane at (b): every
+The process also takes one torch.profiler table of each call: every
 kernel's name, launch count and device time. The tables go to
 ``chiprun_out/sort_lane_ab.json``; standard output gets one JSON line a
 checkout, the card's name and power limit, and a summary of the best times.
@@ -45,7 +46,7 @@ def _child(root: str) -> dict:
 
     import chip_smoke as cs
     from cudf_tpu_torch import AggSpec, Column, Table, groupby_aggregate
-    from cudf_tpu_torch.ops import fastgroup, sortgroup
+    from cudf_tpu_torch.ops import sortgroup
 
     df = cs.lineitem(cs.ROWS, seed=0)
     tbl = Table.from_pandas(df[cs.KEYS + ["l_extendedprice"]])
@@ -54,25 +55,11 @@ def _child(root: str) -> dict:
     del df
     sums = [AggSpec("l_extendedprice", k, k) for k in ("sum", "mean", "min", "max", "var")]
     args = [AggSpec("l_extendedprice", k, k) for k in ("argmin", "argmax")]
-    calls = {"groupby": lambda: groupby_aggregate(cut, ["l_orderkey"], sums)}
+    calls = {"groupby": lambda: groupby_aggregate(cut, ["l_orderkey"], sums),
+             "keys.groupby": lambda: groupby_aggregate(tbl, cs.KEYS, sums)}
     for shape, t, keys in (("a", cut, ["l_orderkey"]), ("b", tbl, cs.KEYS)):
-        answers = {}
-        for name, fn in (("fast_groupby", fastgroup.fast_groupby),
-                         ("sort_groupby", sortgroup.sort_groupby)):
-            out = fn(t, keys, args, True)
-            if out is not None:
-                answers[name] = out
-                calls[f"{shape}.{name}"] = (lambda f=fn, t=t, k=keys: f(t, k, args, True))
-        first = next(iter(answers.values()))
-        for name, out in answers.items():
-            for col, c in first:
-                o = out[col]
-                n = c.length
-                if not (o.length == n and torch.equal(o.data[:n], c.data[:n])
-                        and (c.validity is None) == (o.validity is None)
-                        and (c.validity is None or torch.equal(o.validity[:n],
-                                                               c.validity[:n]))):
-                    raise AssertionError(f"{shape}: {name}'s {col} differs")
+        calls[f"{shape}.sort_groupby"] = (
+            lambda t=t, k=keys: sortgroup.sort_groupby(t, k, args, True))
     for fn in calls.values():
         fn()  # warm: stats cached, kernels and allocations made
     times = {n: [] for n in calls}
@@ -85,7 +72,7 @@ def _child(root: str) -> dict:
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3)
     kernels = {}
-    for name in (n for n in calls if n.startswith("b.")):
+    for name in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             calls[name]()
@@ -125,7 +112,7 @@ def main(roots) -> int:
     for i, res in enumerate(results):
         best = {n: round(min(ts), 3) for n, ts in res["times_ms"].items()}
         busy = {n: round(sum(k[2] for k in ks), 3) for n, ks in res["kernels_ms"].items()}
-        print(f"{i} {res['root']}: best of {RUNS} ms {best}; kernels at (b) ms {busy}")
+        print(f"{i} {res['root']}: best of {RUNS} ms {best}; kernels ms {busy}")
     return 0
 
 

@@ -252,15 +252,16 @@ FAST_KINDS = [(k, p) for k, p in AGG_KINDS if k in tfast._SUPPORTED]
 
 @pytest.mark.parametrize("kind,param", FAST_KINDS,
                          ids=[f"{k}{'_' + str(p) if p else ''}" for k, p in FAST_KINDS])
-def test_fast_groupby_matches_reference(monkeypatch, kind, param):
-    """fastgroup.fast_groupby of both packages, called directly, for every
-    kind it answers (the reference without its Pallas switch)."""
+def test_sort_lane_matches_the_reference_fast_lane(monkeypatch, kind, param):
+    """The port's sortgroup.sort_groupby against the reference's
+    fastgroup.fast_groupby, both called directly, for every kind the
+    reference's lane answers (the reference without its Pallas switch)."""
     monkeypatch.delenv("CUDF_TPU_PALLAS", raising=False)
     df = _agg_frame(seed=9)
     spec = [(_value_col(kind) if kind != "size" else "", kind, "out", param)]
     raggs, taggs = _aggs(spec)
     want = rfast.fast_groupby(ct.Table.from_pandas(df), ["g", "s"], raggs, True)
-    got = tfast.fast_groupby(tt.Table.from_pandas(df, device="cpu"), ["g", "s"],
+    got = tsort.sort_groupby(tt.Table.from_pandas(df, device="cpu"), ["g", "s"],
                              taggs, True)
     assert want is not None and got is not None
     assert_same(got.to_pandas(), want.to_pandas())
@@ -269,8 +270,8 @@ def test_fast_groupby_matches_reference(monkeypatch, kind, param):
 @pytest.mark.parametrize("kind", ["argmin", "argmax"])
 def test_dispatch_answers_argmin_argmax_from_fast_groupby(monkeypatch, kind):
     """argmin/argmax pass the one-hot lane by and are answered by the
-    single-word sort lane (which took them over from fastgroup.fast_groupby,
-    now off the dispatch), not by the generic engine."""
+    single-word sort lane (the reference answers them from its
+    fastgroup.fast_groupby), not by the generic engine."""
     answered = []
     inner = tsort.sort_groupby
 
@@ -280,14 +281,13 @@ def test_dispatch_answers_argmin_argmax_from_fast_groupby(monkeypatch, kind):
         return out
 
     monkeypatch.setattr(tsort, "sort_groupby", spy)
-    fast = Spy(monkeypatch, tfast, "fast_groupby")
     generic = Spy(monkeypatch, tgb, "generic_groupby")
     df = _agg_frame(seed=10)
     raggs, taggs = _aggs([("i", kind, "out")])
     want = rgb.groupby_aggregate(ct.Table.from_pandas(df), ["g", "s"], raggs).to_pandas()
     got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["g", "s"],
                                 taggs).to_pandas()
-    assert answered == [True] and fast.calls == 0 and generic.calls == 0
+    assert answered == [True] and generic.calls == 0
     assert_same(got, want)
 
 
@@ -471,10 +471,10 @@ def test_a_small_group_keeps_its_precision_after_a_large_one(monkeypatch, lane):
     aggs = [("sum", "sum"), ("mean", "mean"), ("var", "var")]
     specs = [tgb.AggSpec("v", kind, out) for kind, out in aggs]
     tbl = tt.Table.from_pandas(df, device="cpu")
-    if lane == "fast":  # the reference's code-sort lane, off the dispatch: called directly
+    if lane == "fast":  # with the argmin of the reference's fast lane, called directly
         specs.append(tgb.AggSpec("v", "argmin", "am"))
         aggs.append(("idxmin", "am"))
-        got = tfast.fast_groupby(tbl, ["k"], specs, True).to_pandas()
+        got = tsort.sort_groupby(tbl, ["k"], specs, True).to_pandas()
     else:
         spy = Spy(monkeypatch, tsort, "sort_groupby")
         got = tgb.groupby_aggregate(tbl, ["k"], specs).to_pandas()
@@ -540,29 +540,28 @@ def test_all_true_bool_key_decodes_as_true():
         assert got["k"].tolist() == [True]
 
 
-@pytest.mark.parametrize("plan", ["blocks", "pieces"])
-def test_group_sums_add_each_groups_own_rows(plan):
-    """GroupSums over groups of 1 to 5,000 rows (inside one block, across
-    blocks, many blocks; small on average for the blocks plan, large for
-    the pieces plan): each float sum within 16·eps·Σ_group|x| of the exact
-    sum, the same bits on a second call, integer sums exact."""
+@pytest.mark.parametrize("layout", ["small_groups", "large_groups"])
+def test_group_sums_add_each_groups_own_rows(layout):
+    """fastgroup.group_sums over groups of 1 to 5,000 rows, small on average
+    or large, with rows past the groups in the overflow segment: each float
+    sum within (m - 1)·eps·Σ_group|x| of the exact sum for a group of m rows
+    (the CPU's fold in row order), the same bits on a second call, the rows
+    past the groups ignored, integer sums exact."""
     rng = np.random.default_rng(9)
     lengths = (np.r_[rng.integers(1, 4, 300), rng.integers(15, 40, 50), 5000, 1, 17]
-               if plan == "blocks" else np.r_[rng.integers(300, 3000, 20), 1, 2, 5000])
+               if layout == "small_groups"
+               else np.r_[rng.integers(300, 3000, 20), 1, 2, 5000])
     rng.shuffle(lengths)
-    n = int(lengths.sum())
+    n, n_groups = int(lengths.sum()), len(lengths)
     x = rng.normal(size=n) * 10.0 ** rng.integers(-3, 7, n)
-    seg = np.repeat(np.arange(len(lengths)), lengths)
-    sums = tfast.GroupSums(torch.from_numpy(np.r_[seg, [len(lengths)] * 7]),
-                           torch.from_numpy(lengths), n)
+    seg = torch.from_numpy(np.r_[np.repeat(np.arange(n_groups), lengths), [n_groups] * 7])
     xt = torch.from_numpy(np.r_[x, np.full(7, 1e300)])  # rows past n are ignored
-    got = sums(xt).numpy()
-    assert sums._plan[0] == plan
-    assert np.array_equal(got, sums(xt).numpy())
+    got = tfast.group_sums(xt, seg, n_groups).numpy()
+    assert np.array_equal(got, tfast.group_sums(xt, seg, n_groups).numpy())
     starts = np.r_[0, np.cumsum(lengths)[:-1]]
     exact = np.array([math.fsum(x[s:s + k]) for s, k in zip(starts, lengths)])
-    bound = 16 * np.finfo(np.float64).eps * np.add.reduceat(np.abs(x), starts)
+    bound = (lengths - 1) * np.finfo(np.float64).eps * np.add.reduceat(np.abs(x), starts)
     assert (np.abs(got - exact) <= bound).all()
     xi = torch.from_numpy(rng.integers(-2**40, 2**40, n + 7))
-    np.testing.assert_array_equal(sums(xi).numpy(),
+    np.testing.assert_array_equal(tfast.group_sums(xi, seg, n_groups).numpy(),
                                   np.add.reduceat(xi.numpy()[:n], starts))

@@ -56,6 +56,9 @@ NOT_COPIED = {
     "ops/chunked.py:chunk_tables": _ENVELOPE,
     "ops/chunked.py:needs_chunking": _ENVELOPE,
     "ops/chunked.py:table_operands": _ENVELOPE,
+    "ops/fastgroup.py:fast_groupby": ("the reference's code-sort lane for argmin "
+        "and argmax; the port's sortgroup.sort_groupby answers every kind it took, "
+        "on the same word"),
     "ops/fastjoin.py:DIRECT_BITS": _WORD_JOIN,
     "ops/fastjoin.py:JointSpec": _WORD_JOIN,
     "ops/fastjoin.py:MAX_FOLD_LANES": _WORD_JOIN,
