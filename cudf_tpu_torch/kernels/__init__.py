@@ -14,6 +14,11 @@
   lane over key-sorted rows: a reduce-by-key with no atomics. It replaces
   no Pallas kernel (the reference leaves segment reductions to XLA); it
   replaces torch's ``scatter_reduce_``, one atomic a row.
+* ``dense_groupby`` — float64 and int64 sums and counts of several columns
+  by keys that pack into at most 11 code bits, in one pass with no sort,
+  in per-thread or per-warp copies in shared memory. It replaces no
+  Pallas kernel (the reference sorts for these sums); it takes the sort
+  lane's place where the group ids are dense already.
 
 The reference keeps its Pallas kernels behind an opt-in switch for a
 TPU-only reason; here a CUDA tensor always takes the kernel, and a CPU
@@ -58,6 +63,9 @@ PROTOTYPES = {
     "segment_reduce": {
         "segment_reduce_scratch": ([_LL], _LL),
         "segment_reduce": ([_P, _P, _LL, _LL, _I, _I] + [_P] * 6, _I)},
+    "dense_groupby": {
+        "dense_groupby_blocks": ([_LL, _I, _I, _I, ctypes.POINTER(_I)], _I),
+        "dense_groupby_sums": ([_P, _P, _P, _I, _P, _P, _I, _LL] + [_I] * 4 + [_P] * 3, _I)},
 }
 
 

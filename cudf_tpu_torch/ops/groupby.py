@@ -8,14 +8,19 @@ Dispatch, in order:
      takes its shared-memory single-pass aggregation when cardinality is
      small (compute_single_pass_aggs.cuh). The reference gates this lane
      behind an opt-in switch and reaches its sort lane first;
-  2. the single-word code sort (``sortgroup.sort_groupby``), every kind
+  2. the dense-slot lane (``densegroup.dense_groupby``) when the keys pack
+     into <= 11 code bits and every agg is sum/mean/count/size over bool,
+     integer or float columns, several of them: one kernel pass sums each
+     column into its slot in float64 or int64, with no sort. The reference
+     has no such lane and sorts;
+  3. the single-word code sort (``sortgroup.sort_groupby``), every kind
      the code-sort aggregates take, argmin/argmax included. The reference
      answers those two from a third lane, ``fastgroup.fast_groupby``, which
      sorts the same rows by the same word where its narrower plan fits and
      has no counterpart here;
-  3. the wide-key lane (``widegroup.wide_groupby``): sparse 64-bit ids and
+  4. the wide-key lane (``widegroup.wide_groupby``): sparse 64-bit ids and
      full-range floats in at most three packed words, no range assumption;
-  4. the generic engine below (``generic_groupby``): a stable
+  5. the generic engine below (``generic_groupby``): a stable
      lexicographic sort of row codes, then per-segment reductions, for
      every key and aggregation.
 
@@ -26,7 +31,8 @@ and on the generic engine otherwise: ``fastgroup.grouped_corr``.
 Every lane returns groups in ascending key order with nulls last (pandas
 sort=True). Past the memory the op may use, ``groupby_aggregate`` runs
 partial aggregates chunk by chunk (``ops/chunked.py``) when every
-aggregation merges; ``aggregate_in_memory`` is the dispatch above alone.
+aggregation merges, except on the dense-slot lane, which runs whole;
+``aggregate_in_memory`` is the dispatch above alone.
 """
 from __future__ import annotations
 
@@ -72,33 +78,55 @@ def _onehot_plan(tbl: Table, keys: Sequence[str], aggs):
 @trace_op
 def groupby_aggregate(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
                       dropna_keys: bool = True) -> Table:
-    """Grouped aggregation; output rows are in sorted key order."""
-    from .chunked import GROUPBY_FACTOR, chunk_rows, chunked_groupby
+    """Grouped aggregation; output rows are in sorted key order. Chunked
+    where the working set passes the memory limit (``_lanes``)."""
+    from .chunked import GROUPBY_FACTOR, chunk_rows
 
     used = list(dict.fromkeys(list(keys) + [c for s in aggs for c in (s.column, s.other)
                                             if c]))
     sub = tbl.select(used) if used else tbl
-    rows = chunk_rows(sub, GROUPBY_FACTOR)
-    if rows is not None:
-        out = chunked_groupby(sub, keys, aggs, dropna_keys, rows)
-        if out is not None:
-            return out
-    return aggregate_in_memory(tbl, keys, aggs, dropna_keys)
+    return _lanes(tbl, keys, tuple(aggs), dropna_keys, sub, chunk_rows(sub, GROUPBY_FACTOR))
 
 
 def aggregate_in_memory(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
                         dropna_keys: bool = True) -> Table:
-    """The groupby lanes over the whole table at once (never chunked). Each
-    lane's attempt opens its range (``groupby.onehot``, ``groupby.sort``,
-    ``groupby.wide``, ``groupby.generic``), a refused one too."""
+    """The groupby lanes over the whole table at once (never chunked)."""
+    return _lanes(tbl, keys, tuple(aggs), dropna_keys, tbl, None)
+
+
+def _lanes(tbl: Table, keys: Sequence[str], aggs: tuple, dropna_keys: bool, sub: Table,
+           rows) -> Table:
+    """The dispatch, in the module docstring's order. Each lane's attempt
+    opens its range (``groupby.onehot``, ``groupby.dense``, ``groupby.sort``,
+    ``groupby.wide``, ``groupby.generic``), a refused one too.
+
+    ``rows`` is None, or the rows a chunk when ``sub`` (the columns the
+    groupby reads) times ``chunked.GROUPBY_FACTOR`` passes the memory limit.
+    That factor is the sorted lanes' working set: the one-hot lane and the
+    sorted lanes then run chunk by chunk (``chunked.chunked_groupby``, each
+    chunk by these lanes whole). The dense-slot lane runs whole all the
+    same, since its kernel holds nothing past its input but K·A words; its
+    plain CPU version holds O(n) temporaries (an int64 slot and index, a
+    bool mask, one column of terms at a time) and skips the limit too, so
+    that a CPU table takes the card's path."""
+    from .chunked import chunked_groupby
+    from .densegroup import dense_groupby
     from .sortgroup import sort_groupby
     from .widegroup import wide_groupby
 
-    aggs = tuple(aggs)
     with annotate("groupby.onehot"):
         onehot = _onehot_plan(tbl, keys, aggs)
-        if onehot is not None:
+        if onehot is not None and rows is None:
             return fastgroup._onehot_groupby(tbl, keys, aggs, dropna_keys, *onehot)
+    if onehot is None:
+        with annotate("groupby.dense"):
+            out = dense_groupby(tbl, keys, aggs, dropna_keys)
+        if out is not None:
+            return out
+    if rows is not None:
+        out = chunked_groupby(sub, keys, aggs, dropna_keys, rows)
+        if out is not None:
+            return out
     with annotate("groupby.sort"):
         out = sort_groupby(tbl, keys, aggs, dropna_keys)
     if out is None:

@@ -52,8 +52,9 @@ The ranges, where each opens, and the benchmark metric that reads it
 - ``apply_boolean_mask``: ``trace_op`` on
   ``ops/stream_compaction.py:apply_boolean_mask``, one compaction;
   ``compaction_share``;
-- ``groupby.onehot``, ``groupby.sort``, ``groupby.wide``,
-  ``groupby.generic``: ``ops/groupby.py:aggregate_in_memory``, each
+- ``groupby.onehot``, ``groupby.dense``, ``groupby.sort``,
+  ``groupby.wide``, ``groupby.generic``:
+  ``ops/groupby.py:aggregate_in_memory``, each
   lane's attempt, a refused one (its plan check, or its call that
   returns None) too; ``groupby_generic_share`` reads the last;
 - ``groupby.corr``: the moments of a groupby's correlations

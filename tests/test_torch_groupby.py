@@ -25,6 +25,7 @@ from cudf_tpu.utils.padding import bucket_capacity
 import cudf_tpu_torch as tt
 from cudf_tpu_torch.core.column import Column as TColumn
 from cudf_tpu_torch.core import dtypes as tdt
+from cudf_tpu_torch.ops import densegroup as tdense
 from cudf_tpu_torch.ops import fastgroup as tfast
 from cudf_tpu_torch.ops import groupby as tgb
 from cudf_tpu_torch.ops import sortgroup as tsort
@@ -167,18 +168,38 @@ BENCH_SHAPES = {
 }
 
 
-@pytest.mark.parametrize("shape", sorted(BENCH_SHAPES))
-def test_sort_lane_bench_shapes(monkeypatch, shape):
+def _bench_shape(shape):
     make, keys, kind, dropna_first = BENCH_SHAPES[shape]
     df = make(np.random.default_rng(2), 20000)
     raggs, taggs = _aggs([("C", kind, "C")])
     r, t = ct.Table.from_pandas(df), tt.Table.from_pandas(df, device="cpu")
     if dropna_first:
         r, t = rsc.drop_nulls(r), tsc.drop_nulls(t)
+    return r, t, keys, raggs, taggs
+
+
+@pytest.mark.parametrize("shape", sorted(BENCH_SHAPES))
+def test_sort_lane_bench_shapes(monkeypatch, shape):
+    """The sort lane, with the dense lane switched off (it takes the
+    1,000-key string shape)."""
+    r, t, keys, raggs, taggs = _bench_shape(shape)
+    monkeypatch.setattr(tdense, "dense_groupby", lambda *a, **k: None)
     sort_lane = Spy(monkeypatch, tsort, "sort_groupby")
     want = rgb.groupby_aggregate(r, keys, raggs).to_pandas()
     got = tgb.groupby_aggregate(t, keys, taggs).to_pandas()
     assert sort_lane.calls == 1
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("shape", ["string_key"])
+def test_dense_lane_bench_shapes(monkeypatch, shape):
+    """The bench shapes whose keys pack into 11 code bits, by the dense lane."""
+    r, t, keys, raggs, taggs = _bench_shape(shape)
+    dense_lane = Spy(monkeypatch, tdense, "dense_groupby")
+    sort_lane = Spy(monkeypatch, tsort, "sort_groupby")
+    want = rgb.groupby_aggregate(r, keys, raggs).to_pandas()
+    got = tgb.groupby_aggregate(t, keys, taggs).to_pandas()
+    assert dense_lane.calls == 1 and sort_lane.calls == 0
     assert_same(got, want)
 
 
@@ -438,18 +459,22 @@ def test_entry_step_matches_reference():
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("lane", ["onehot", "sort"])
+@pytest.mark.parametrize("lane", ["onehot", "dense", "sort"])
 def test_onehot_lane_keeps_nan_in_its_group(monkeypatch, lane):
     """A NaN value poisons only its own group's sum, in the port's one-hot
-    lane (f32 values) and in its code-sort lane (f64 values), whose sums
-    add each group's own rows. The reference's lanes spread it: the
-    one-hot matmul multiplies the NaN by the zeros of every other group,
-    and the sort lanes' prefix sums carry it into every later group."""
+    lane (f32 values), its dense-slot lane and its code-sort lane (f64
+    values; the dense lane switched off for the sort lane), whose sums add
+    each group's own rows. The reference's lanes spread it: the one-hot
+    matmul multiplies the NaN by the zeros of every other group, and the
+    sort lanes' prefix sums carry it into every later group."""
     dt = np.float32 if lane == "onehot" else np.float64
     df = pd.DataFrame({"k": np.array([0, 1, 2, 0, 1, 2], np.int32),
                        "v": np.array([1, np.nan, 3, 4, 5, 6], dt)})
-    spy = (Spy(monkeypatch, tfast, "_onehot_groupby") if lane == "onehot"
-           else Spy(monkeypatch, tsort, "sort_groupby"))
+    if lane == "sort":
+        monkeypatch.setattr(tdense, "dense_groupby", lambda *a, **k: None)
+    spy = {"onehot": lambda: Spy(monkeypatch, tfast, "_onehot_groupby"),
+           "dense": lambda: Spy(monkeypatch, tdense, "dense_groupby"),
+           "sort": lambda: Spy(monkeypatch, tsort, "sort_groupby")}[lane]()
     got = tgb.groupby_aggregate(tt.Table.from_pandas(df, device="cpu"), ["k"],
                                 [tgb.AggSpec("v", "sum", "s")]).to_pandas()
     assert spy.calls == 1

@@ -300,13 +300,13 @@ def test_frame_mask_filter_and_ir_filter_each_compact_in_a_range():
 
 
 # ------------------------------------------------------------ groupby lanes
-LANES = ["onehot", "sort", "wide", "generic"]
+LANES = ["onehot", "dense", "sort", "wide", "generic"]
 
 
 def _lane_case(lane):
     """(table, keys, aggregations) that ``lane`` answers: an f32 sum at a
-    few keys, an f64 sum, two int64 keys spread over 2^62 (too wide for one
-    word), a median."""
+    few keys, an f64 sum there, an f64 min there, two int64 keys spread over
+    2^62 (too wide for one word), a median."""
     from cudf_tpu_torch.ops.groupby import AggSpec
 
     rng = np.random.default_rng(3)
@@ -316,8 +316,8 @@ def _lane_case(lane):
                         "w2": rng.integers(0, 2**62, 3, dtype=np.int64)[rng.integers(0, 3, n)],
                         "f": rng.normal(size=n).astype(np.float32), "v": rng.normal(size=n)})
     tbl = Table.from_pandas(pdf, device="cpu")
-    kind, col = {"onehot": ("sum", "f"), "sort": ("sum", "v"), "wide": ("sum", "v"),
-                 "generic": ("median", "v")}[lane]
+    kind, col = {"onehot": ("sum", "f"), "dense": ("sum", "v"), "sort": ("min", "v"),
+                 "wide": ("sum", "v"), "generic": ("median", "v")}[lane]
     keys = ["w1", "w2"] if lane == "wide" else ["k"]
     return tbl, keys, [AggSpec(col, kind, "out")]
 
