@@ -154,11 +154,10 @@ def generic_groupby(tbl: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
     ocols = tuple(tbl[s.other] if s.other else None for s in aggs)
     vperms = []
     for s in aggs:
-        if s.kind in ("nunique", "median", "quantile"):
-            vperms.append(multisort_perm(
-                _value_sort_codes(kcols, tbl[s.column], s.kind != "nunique")))
+        if s.kind in ("median", "quantile"):
+            vperms.append(multisort_perm(_value_sort_codes(kcols, tbl[s.column], True)))
         else:
-            vperms.append(None)
+            vperms.append(None)  # _nunique sorts inside its own range
     out = _aggregate_impl(kcols, vcols, tuple(keys), aggs, out_cap, perm, seg,
                           inb_sorted, n_groups, tuple(vperms), ocols)
     return Table({n: out[n] for n in list(keys) + [s.out_name for s in aggs]})
@@ -340,7 +339,7 @@ def _compute_agg(vcol: Column, spec: AggSpec, perm, seg_c, inb_sorted,
         return Column(g.dtype, g.data, v & validity, n_groups, vcol.dictionary)
 
     if kind == "nunique":
-        return _nunique(kcols, vcol, nseg, out_cap, n_groups, vperm)
+        return _nunique(kcols, vcol, nseg, out_cap, n_groups)
     if kind in ("median", "quantile"):
         q = 0.5 if kind == "median" else float(spec.param)
         return _quantile(kcols, vcol, nseg, out_cap, n_groups, q, vperm)
@@ -360,23 +359,26 @@ def _sorted_segments(kcols, perm, nseg):
     return key_sorted, inb, seg_c
 
 
-def _nunique(kcols, vcol: Column, nseg, out_cap, n_groups, perm) -> Column:
+def _nunique(kcols, vcol: Column, nseg, out_cap, n_groups) -> Column:
     """Distinct valid values per group: sorted by (keys, value); count the
-    runs holding at least one valid row."""
-    key_sorted, inb, seg_c = _sorted_segments(kcols, perm, nseg)
-    cap = vcol.capacity
-    pos = torch.arange(cap, device=perm.device)
-    vsorted = [op[perm] for op in rowcodes.equality_operands(vcol)]
-    newval = rowcodes.adjacent_neq(key_sorted + vsorted)
-    svalid = inb
-    if vcol.validity is not None:
-        svalid = svalid & vcol.validity[perm]
-    runid = tiled_cumsum(newval) - 1
-    first_valid = segment_reduce(torch.where(svalid, pos, cap - 1), runid, cap,
-                                 "amin", cap - 1)
-    isfirst = svalid & (first_valid[runid] == pos)
-    r = segment_reduce(isfirst.to(torch.int64), seg_c, nseg, "sum", 0)[:out_cap]
-    return Column(dtypes.int64, r, None, n_groups)
+    runs holding at least one valid row. One ``groupby.nunique`` range,
+    the sort included."""
+    with annotate("groupby.nunique"):
+        perm = multisort_perm(_value_sort_codes(kcols, vcol, False))
+        key_sorted, inb, seg_c = _sorted_segments(kcols, perm, nseg)
+        cap = vcol.capacity
+        pos = torch.arange(cap, device=perm.device)
+        vsorted = [op[perm] for op in rowcodes.equality_operands(vcol)]
+        newval = rowcodes.adjacent_neq(key_sorted + vsorted)
+        svalid = inb
+        if vcol.validity is not None:
+            svalid = svalid & vcol.validity[perm]
+        runid = tiled_cumsum(newval) - 1
+        first_valid = segment_reduce(torch.where(svalid, pos, cap - 1), runid, cap,
+                                     "amin", cap - 1)
+        isfirst = svalid & (first_valid[runid] == pos)
+        r = segment_reduce(isfirst.to(torch.int64), seg_c, nseg, "sum", 0)[:out_cap]
+        return Column(dtypes.int64, r, None, n_groups)
 
 
 def _quantile(kcols, vcol: Column, nseg, out_cap, n_groups, q: float, perm) -> Column:

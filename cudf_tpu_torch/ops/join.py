@@ -205,9 +205,9 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
 
     ``ordered=False`` relaxes the output order to libcudf's contract (only
     the multiset of rows is promised), which lets an inner join build on
-    its smaller side; ``ordered=True`` gives left-row order."""
+    its smaller side; ``ordered=True`` gives left-row order. A semi or anti
+    join runs inside a ``join.semi`` or ``join.anti`` range."""
     from .fastjoin import try_fast_join
-    from .stream_compaction import apply_boolean_mask
 
     if how not in _HOWS:
         raise ValueError(f"unknown join type {how!r}")
@@ -221,6 +221,10 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
                                                       right_on, suffixes)})
     if how == "full":
         return _full_join(left, right, left_on, right_on, nulls_equal, suffixes)
+    if how in ("semi", "anti"):
+        with annotate(f"join.{how}"):
+            return _filtering_join(left, right, left_on, right_on, how, nulls_equal,
+                                   suffixes)
 
     fast = None
     if how == "inner" and not ordered and \
@@ -236,9 +240,6 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
 
     lcols, rcols = _promote_keys(left, left_on, right, right_on)
     counts, lb, r_perm, linb = _probe(lcols, rcols, nulls_equal)
-    if how in ("semi", "anti"):
-        keep = (counts == 0) if how == "anti" else (counts > 0)
-        return apply_boolean_mask(left, Column(dtypes.bool_, keep, None, left.num_rows))
     eff = torch.where(linb, counts.clamp(min=1), 0) if how == "left" else counts
     with annotate("host_read.join.n_out"):
         n_out = int(eff.sum().item())  # the one host read of the size pass
@@ -247,6 +248,22 @@ def join(left: Table, right: Table, left_on: Sequence[str], right_on: Sequence[s
     left_cols = {n: gather(left[n], left_idx, n_out) for n in left.names}
     return _materialize(left_cols, right, left_on, right_on, right_idx, n_out, how,
                         suffixes)
+
+
+def _filtering_join(left: Table, right: Table, left_on: List[str], right_on: List[str],
+                    how: str, nulls_equal: bool, suffixes) -> Table:
+    """A semi or anti join: the left rows with (semi) or without (anti) a
+    match, on the hash lane where it applies, else on the general lane."""
+    from .fastjoin import try_fast_join
+    from .stream_compaction import apply_boolean_mask
+
+    fast = try_fast_join(left, right, left_on, right_on, how, nulls_equal, suffixes)
+    if fast is not None:
+        return fast
+    lcols, rcols = _promote_keys(left, left_on, right, right_on)
+    counts = _probe(lcols, rcols, nulls_equal)[0]
+    keep = (counts == 0) if how == "anti" else (counts > 0)
+    return apply_boolean_mask(left, Column(dtypes.bool_, keep, None, left.num_rows))
 
 
 def _n_active(tbl: Table, on: Sequence[str], nulls_equal: bool) -> int:

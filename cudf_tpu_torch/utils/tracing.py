@@ -57,6 +57,13 @@ The ranges, where each opens, and the benchmark metric that reads it
   ``ops/groupby.py:aggregate_in_memory``, each
   lane's attempt, a refused one (its plan check, or its call that
   returns None) too; ``groupby_generic_share`` reads the last;
+- ``groupby.nunique``: ``ops/groupby.py:_nunique``, one per-group
+  distinct count (its (keys, value) sort and the count of value runs), on
+  the generic engine, the one lane that takes ``nunique``;
+  ``nunique_share`` reads the device time launched inside it;
+- ``join.semi``, ``join.anti``: ``ops/join.py:join``'s semi and anti
+  joins, on whichever lane runs them (the hash lane's build and probe, or
+  the general lane's sort), and their compaction. No metric reads them;
 - ``groupby.corr``: the moments of a groupby's correlations
   (``ops/fastgroup.py:grouped_corr``), once a groupby, inside
   ``groupby.sort`` (``aggregate_sorted``) or ``groupby.generic``

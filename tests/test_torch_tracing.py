@@ -413,6 +413,59 @@ def test_q6_through_the_frame_opens_eight_reductions(monkeypatch):
     pd.testing.assert_frame_equal(got.to_pandas(), want)
 
 
+# --------------------------------------- distinct counts, semi and anti joins
+def test_a_nunique_opens_one_range_inside_the_generic_engine(monkeypatch):
+    """The value sort and the count of value runs of one ``nunique`` in one
+    ``groupby.nunique`` range, on the generic engine; a median beside it
+    opens none; no range synchronizes."""
+    from cudf_tpu_torch.ops.groupby import AggSpec, groupby_aggregate
+
+    rng = np.random.default_rng(9)
+    pdf = pd.DataFrame({"k": rng.integers(0, 6, 300), "v": rng.integers(0, 9, 300),
+                        "x": rng.normal(size=300)})
+    tbl = Table.from_pandas(pdf, device="cpu")
+    syncs = _no_sync(monkeypatch)
+    got, events = _traced(lambda: groupby_aggregate(
+        tbl, ["k"], [AggSpec("v", "nunique", "n"), AggSpec("x", "median", "m")]))
+    (nunique,) = _named(events, "groupby.nunique")
+    assert _ancestors(nunique)[:2] == ["groupby.generic", "groupby_aggregate"]
+    assert [e for e in events if e.name == "aten::sort"
+            and "groupby.nunique" in _ancestors(e)], "the value sort runs inside the range"
+    assert syncs == []
+    assert got["n"].to_numpy().tolist() == pdf.groupby("k").v.nunique().tolist()
+
+
+@pytest.mark.parametrize("lane", ["hash", "general"])
+@pytest.mark.parametrize("how", ["semi", "anti"])
+def test_semi_and_anti_joins_open_their_range_on_either_lane(how, lane, monkeypatch):
+    """One ``join.<how>`` range inside ``join``, around the lane's work and
+    the compaction; an inner join opens neither; no range synchronizes."""
+    from cudf_tpu_torch.ops import fastjoin
+
+    if lane == "general":
+        monkeypatch.setattr(fastjoin, "try_fast_join", lambda *a, **k: None)
+    probe, real = [], J._probe
+    monkeypatch.setattr(J, "_probe", lambda *a, **k: probe.append(1) or real(*a, **k))
+    lt, rt, left, right = _tables([1, 2, 3, 4, 2], [2, 4, 4, 9])
+    syncs = _no_sync(monkeypatch)
+    out, events = _traced(lambda: J.join(lt, rt, ["k"], ["k"], how))
+    (rng_,) = _named(events, f"join.{how}")
+    assert _ancestors(rng_)[0] == "join"
+    assert _named(events, {"semi": "join.anti", "anti": "join.semi"}[how]) == []
+    (mask,) = _named(events, "apply_boolean_mask")
+    assert f"join.{how}" in _ancestors(mask)
+    if lane == "hash":
+        assert f"join.{how}" in _ancestors(_named(events, "hash_build")[0]) and not probe
+    else:
+        assert probe == [1]
+    assert syncs == []
+    hit = left.k.isin(right.k)
+    want = left[hit if how == "semi" else ~hit]
+    assert out.to_pandas()["k"].tolist() == want["k"].tolist()
+    _, inner = _traced(lambda: J.join(lt, rt, ["k"], ["k"], "inner"))
+    assert not [e for e in inner if e.name in ("join.semi", "join.anti")]
+
+
 # ------------------------------------------------------- with no profiler
 def test_without_a_profiler_results_are_unchanged_and_nothing_prints(capsys):
     pdf = pd.DataFrame({"k": [3, 1, 2, 1], "v": [1.0, 2.0, 3.0, 4.0]})
