@@ -49,7 +49,8 @@ Phases (each prints a line; any failure raises and exits nonzero):
                to_pandas, checked against a numpy searchsorted oracle as a
                multiset; then ordered=True row for row, semi and left (null
                where no match). Launch counts are zeroed just before and
-               read just after; the probe kernel must have launched;
+               read just after the first run; the probe kernel and the
+               insert kernel (one a hash build) must have launched;
   6. join-general — filtered orders joined with the first 16M lineitem rows
                (CUT_ROWS) as the build side (~1 row a key), ordered=True
                (with ordered=False the swap would build on the filtered
@@ -60,7 +61,15 @@ Phases (each prints a line; any failure raises and exits nonzero):
                edge cases (both table layouts, a chain that wraps); times;
                its bound from the distinct 32 B sectors along the main
                join's probe chains, beside S, the slot reads (probe_reads
-               walks each query's chain as the plain version does);
+               walks each query's chain as the plain version does). Then
+               the hash build (insert_vs_plain): the insert kernel against
+               its plain version at TPC-H SF30 Q21's largest build (38.6M
+               distinct order keys, 2^27 slots) and q5's customers (keys
+               0..4,499,999, 2^24 slots), every key found with the
+               build's own probe bound; the kernel's time beside its bound
+               (16 B a slot filled, 9 B read and a 32 B sector read and
+               written a row), the plain version's, and the capped rounds'
+               build at two sizes that the kernel replaced;
   8. sort    — bench.py's sort shape at 60M rows: sort_by_key([k1 f64 with
                2% NaN, k2 f32]) carrying v, against a stable numpy lexsort,
                every column exact; first and warm times, device profile;
@@ -71,7 +80,10 @@ Phases (each prints a line; any failure raises and exits nonzero):
                (assert_frame_equal rtol 1e-6); first and warm times, the
                per-node profile of execute_with_profile and the device
                profile; launch counts are zeroed before the queries and read
-               after, and q3 and q5 must launch the probe kernel. Then the
+               after, and q3 and q5 must launch the probe kernel (and one
+               insert a hash build: its launches and past_max_probe, the
+               builds the capped rounds would have redone, are printed for
+               each query). Then the
                datetime checks on l_shipdate (60M rows): extract of year,
                month, day, weekday, day_of_year and microsecond and truncate
                to M and Y against pandas .dt exactly (weekday ISO, pandas + 1),
@@ -1584,6 +1596,7 @@ def join_path(gpu: str, df, od, want, match):
 
     ht.probe_table.launches = 0
     ht.probe_table.packs = 0
+    ht.insert_table.launches = 0
     oh.groupby_sum_count.launches = 0
     t0 = time.perf_counter()
     ot = Table.from_pandas(od)
@@ -1593,8 +1606,11 @@ def join_path(gpu: str, df, od, want, match):
     got = out.to_pandas()
     t2 = time.perf_counter()
     launches = ht.probe_table.launches
+    builds = ht.insert_table.launches
     if launches < 1:
         raise AssertionError("the join path did not launch the probe kernel")
+    if builds < 1:
+        raise AssertionError("the join path did not launch the insert kernel")
     if oh.groupby_sum_count.launches:
         raise AssertionError("the join path launched the one-hot kernel")
     if ht.probe_table.packs:
@@ -1607,7 +1623,8 @@ def join_path(gpu: str, df, od, want, match):
     log(f"join: [{gpu}] {ORDERS} orders -> {filtered.num_rows} after o_orderdate < "
         f"1995-03-15; {li.num_rows} lineitem rows -> {len(got)} joined rows; orders "
         f"ingest {t1 - t0:.3f} s, filter+join+to_pandas {t2 - t1:.3f} s (first), "
-        f"filter+join warm {warm_s * 1e3:.2f} ms (host clock); probe launches {launches}")
+        f"filter+join warm {warm_s * 1e3:.2f} ms (host clock); probe launches {launches}, "
+        f"insert launches {builds}")
 
     assert_rows({c: got[c].to_numpy() for c in JOIN_COLS}, want, "inner unordered", True)
     ordered = join(li, filtered, ["l_orderkey"], ["o_orderkey"], "inner")
@@ -1629,7 +1646,7 @@ def join_path(gpu: str, df, od, want, match):
         f"ordered=True row for row), semi and left (null where no match), every "
         f"column exact; {int(match.sum())} of {len(match)} lineitem rows match")
     log(f"join: [{gpu}] warm filter+join profile: " + device_breakdown(lambda: q3(ot)))
-    return li, filtered, launches
+    return li, filtered, launches, builds
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1725,11 +1742,12 @@ def probe_edge_cases(ht, dev) -> int:
     return len(cases)
 
 
-def probe_reads(table, q1, q2) -> tuple:
-    """(S, sectors): the slot reads of probe_table(*table, q1, q2), each
-    query's chain walked as probe_table_plain walks it (up to the first
-    match or vacant slot, at most MAX_PROBE steps), and the distinct 32 B
-    sectors those reads touch along each chain."""
+def probe_reads(table, q1, q2, max_probe: int) -> tuple:
+    """(S, sectors): the slot reads of probe_table(*table, q1, q2,
+    max_probe=max_probe), each query's chain walked as probe_table_plain
+    walks it (up to the first match or vacant slot, at most max_probe
+    steps), and the distinct 32 B sectors those reads touch along each
+    chain."""
     import torch
 
     from cudf_tpu_torch.kernels import hashtable as ht
@@ -1741,7 +1759,7 @@ def probe_reads(table, q1, q2) -> tuple:
     done = torch.zeros(q1.shape, dtype=torch.bool, device=q1.device)
     reads = sectors = 0
     prev = None
-    for i in range(ht.MAX_PROBE):
+    for i in range(max_probe):
         slot = (h + i) & (m - 1)
         sector = (base + slot.to(torch.int64)) >> 1
         reads += int((~done).sum().item())
@@ -1765,15 +1783,15 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
     built = fastjoin.build_hash_table([li["l_orderkey"]], [filtered["o_orderkey"]], False)
     if built is None:
         raise AssertionError("the main join's keys built no hash table")
-    (q1, q2), table, n_build = built
+    (q1, q2), table, n_build, _, max_probe = built
     if ht.slot_tensor(*table) is None:
         raise AssertionError("the main join's table is not in the slot layout")
     packs = ht.probe_table.packs
-    got = ht.probe_table(*table, q1, q2)
+    got = ht.probe_table(*table, q1, q2, max_probe=max_probe)
     torch.cuda.synchronize()
     if ht.probe_table.packs != packs:
         raise AssertionError("the main join's table was packed before the probe")
-    want = ht.probe_table_plain(*table, q1, q2)
+    want = ht.probe_table_plain(*table, q1, q2, max_probe)
     max_err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
     if max_err != 0:
         raise AssertionError("probe kernel disagrees with its plain version at the "
@@ -1782,8 +1800,8 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
         f"cases (both layouts, a chain that wraps) and on the main join's table "
         f"(slot views, reached the kernel with no packing) and words")
 
-    ms = cuda_ms(lambda: ht.probe_table(*table, q1, q2))
-    plain_ms = cuda_ms(lambda: ht.probe_table_plain(*table, q1, q2), iters=5)
+    ms = cuda_ms(lambda: ht.probe_table(*table, q1, q2, max_probe=max_probe))
+    plain_ms = cuda_ms(lambda: ht.probe_table_plain(*table, q1, q2, max_probe), iters=5)
 
     def packed(w1, w2):
         return (w2.to(torch.int64) << 32) | (w1.to(torch.int64) & 0xFFFFFFFF)
@@ -1793,7 +1811,7 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
     probe_keys = packed(q1, q2)
     library_ms = cuda_ms(lambda: torch.searchsorted(build_keys, probe_keys))
     m, n = table[0].shape[0], q1.shape[0]
-    reads, sectors = probe_reads(table, q1, q2)
+    reads, sectors = probe_reads(table, q1, q2, max_probe)
     # each chain starts at a hashed slot of a table far past the 50 MB L2,
     # so every 32 B sector it touches comes from HBM; a next slot in the
     # same sector (two slots a sector) moves nothing new. Plus two query
@@ -1803,7 +1821,7 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
     ops = 12 * reads          # hash and one probe step's compares, 32-bit ALU ops
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
     log(f"kernels: [{gpu}] hashtable_probe N={n} queries, m={m} slots for {n_build} "
-        f"build rows: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted "
+        f"build rows, max_probe {max_probe}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, searchsorted "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB at "
         f"3.35 TB/s: 12·N + 32·sectors for {sectors} distinct 32 B sectors along the "
         f"chains, {sectors / n:.4f} a query; S = {reads} slot reads, S/N = "
@@ -1816,6 +1834,74 @@ def probe_vs_plain(gpu: str, li, filtered) -> dict:
             "launches": 0, "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
             >= ops / F32_FLOPS else "operations", "library_ms": library_ms}
+
+
+def insert_vs_plain(gpu: str) -> dict:
+    """The hash build's insert kernel against its plain version at the
+    joins' largest builds: TPC-H SF30 Q21's 38.6M order keys (drawn
+    distinct from [0, 2^28) on the card) in 2^27 slots, and q5's 4.5M
+    customer keys 0..4,499,999 in 2^24, where the capped rounds leave a
+    row unplaced. Each table holds every key once, found with its own
+    probe bound; ``occupied`` is exact. Times (CUDA events, the wrapper
+    with its one host read of the counts) beside the bound, the plain
+    version's and the capped rounds' at two sizes, the build they
+    replaced."""
+    import torch
+
+    from cudf_tpu_torch.kernels import hashtable as ht
+
+    out = {}
+    for what, n, m in (("q21_late_orders", 38_600_000, 1 << 27),
+                       ("q5_customers", 4_500_000, 1 << 24)):
+        g = torch.Generator(device="cuda").manual_seed(23)
+        keys = (torch.randperm(1 << 28, device="cuda", generator=g)[:n].to(torch.int32)
+                if n > 5_000_000 else torch.arange(n, dtype=torch.int32, device="cuda"))
+        k2 = torch.zeros_like(keys)
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+        rows = torch.arange(n, dtype=torch.int32, device="cuda")
+        launches, past = ht.insert_table.launches, ht.insert_table.past_max_probe
+        tk1, tk2, pay, occupied, longest = ht.insert_table(keys, k2, valid, m)
+        if ht.insert_table.launches != launches + 1 or occupied != n:
+            raise AssertionError(f"insert {what}: {ht.insert_table.launches - launches} "
+                                 f"launches, {occupied} slots for {n} keys")
+        hit = ht.probe_table(tk1, tk2, pay, keys, k2, max_probe=longest + 1)
+        if not torch.equal(hit, rows):
+            raise AssertionError(f"insert {what}: a key not found at its row")
+        p_tk1, p_tk2, p_pay, p_occ, p_longest = ht.insert_table_plain(keys, k2, valid, m)
+        p_hit = ht.probe_table_plain(p_tk1, p_tk2, p_pay, keys, k2, p_longest + 1)
+        if p_occ != occupied or not torch.equal(p_hit, hit):
+            raise AssertionError(f"insert {what}: the kernel's table differs from the "
+                                 f"plain version's")
+        del p_tk1, p_tk2, p_pay, p_hit, hit
+        past = ht.insert_table.past_max_probe - past
+        ms = cuda_ms(lambda: ht.insert_table(keys, k2, valid, m))
+        plain_ms = cuda_ms(lambda: ht.insert_table_plain(keys, k2, valid, m), iters=2)
+
+        def rounds():
+            size = m
+            while not ht.build_table(keys, k2, valid, size)[3]:
+                size *= 2
+
+        rounds_ms = cuda_ms(rounds, iters=2)
+        nbytes = 16 * (m + 1) + 73 * n
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"kernels: [{gpu}] hashtable_insert {what}: n={n} keys, m={m} slots: kernel "
+            f"{ms:.4f} ms (with the counts' host read), bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e9:.4f} GB at 3.35 TB/s: 16·(m + 1) + 73·n), plain "
+            f"{plain_ms:.2f} ms, the capped rounds until placed {rounds_ms:.2f} ms; "
+            f"occupied {occupied}, longest displacement {longest} (plain {p_longest}), "
+            f"past_max_probe +{past}; every key found at its row with max_probe "
+            f"{longest + 1}, the plain table's answers equal")
+        out[what] = {"ms": ms, "plain_ms": plain_ms, "rounds_ms": rounds_ms,
+                     "bound_ms": bound_ms, "longest": longest}
+        del tk1, tk2, pay, keys, k2, valid, rows
+        torch.cuda.empty_cache()
+    q21 = out["q21_late_orders"]
+    return {"name": "hashtable_insert", "route": "cuda",
+            "source": "cudf_tpu_torch/kernels/csrc/hashtable_probe.cu",
+            "replaces": "none (the reference builds with XLA scatter rounds)",
+            "launches": 0, "max_abs_err": 0.0, "ms": q21["ms"], "plain_ms": q21["plain_ms"],
+            "bound_ms": q21["bound_ms"], "bound_by": "bytes", "shapes": out}
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1957,14 +2043,17 @@ def tpch_phase(gpu: str, wide_oracle):
     ht.probe_table.launches = 0
     oh.groupby_sum_count.launches = 0
     dg.dense_groupby.launches = 0
-    dense = {}
+    dense, inserts = {}, {}
     for q, plan in plans.items():
         before, dense_before = ht.probe_table.launches, dg.dense_groupby.launches
+        builds, past = ht.insert_table.launches, ht.insert_table.past_max_probe
         t0 = time.perf_counter()
         out = IR.execute(plan).to_pandas()
         first_s = time.perf_counter() - t0
         launches = ht.probe_table.launches - before
         dense[q] = dg.dense_groupby.launches - dense_before
+        inserts[q] = (ht.insert_table.launches - builds,
+                      ht.insert_table.past_max_probe - past)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         IR.execute(plan)
@@ -1980,6 +2069,10 @@ def tpch_phase(gpu: str, wide_oracle):
         raise AssertionError(f"tpch: q1's and q5's groupbys launched the dense-slot kernel "
                              f"{dense['q1']} and {dense['q5']} times")
     log(f"tpch: dense-slot kernel launches in the first run: {dense}")
+    log("tpch: hash builds in the first run, (insert launches, past_max_probe): "
+        + ", ".join(f"{q} {v}" for q, v in inserts.items()))
+    if inserts["q3"][0] < 1 or inserts["q5"][0] < 1:
+        raise AssertionError("tpch: q3's and q5's joins did not build by the insert kernel")
 
     for q, plan in plans.items():
         out, first_s, warm_s, launches = runs[q]
@@ -4542,7 +4635,7 @@ def main() -> int:
     log(f"data: [{gpu}] {ORDERS} orders and the numpy join oracle in "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
     t0 = time.perf_counter()
-    li, filtered, probe_launches = join_path(gpu, df, od, want, match)
+    li, filtered, probe_launches, builds = join_path(gpu, df, od, want, match)
     merge_launches, merge_s = frame_merge(gpu, li, filtered, want)
     frame_s += merge_s
     accel_merge(gpu, df, od, want)
@@ -4556,10 +4649,12 @@ def main() -> int:
     join_general(gpu, li, filtered, want, match)
     t2 = time.perf_counter()
     probe = probe_vs_plain(gpu, li, filtered)
+    insert = insert_vs_plain(gpu)
     t3 = time.perf_counter()
     log(f"phases: [{gpu}] join {t1 - t0:.1f} s, join-general {t2 - t1b:.1f} s, probe "
         f"kernel checks {t3 - t2:.1f} s (host clock, checks included)")
     probe["launches"] = probe_launches
+    insert["launches"] = builds  # the first Q3 join's builds: the main path
     probe["frame_launches"] = merge_launches
     del df, od, want, match, li, filtered  # the README and join frames
     torch.cuda.empty_cache()
@@ -4635,7 +4730,7 @@ def main() -> int:
         "non-decreasing, in range)")
     log(f"total: [{gpu}] {time.perf_counter() - t_start:.1f} s (host clock)")
     log(gpu)
-    log(json.dumps({"kernels": [onehot, probe, check, segred, dense]}))
+    log(json.dumps({"kernels": [onehot, probe, check, segred, dense, insert]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -5,8 +5,11 @@
   (replaces the Pallas MXU one-hot kernel; the shape of libcudf's
   compute_single_pass_aggs.cuh).
 * ``hashtable`` — linear-probing hash table for distinct-key build sides:
-  a torch build into 16 B slots and a probe kernel that reads a slot with
-  one vector load (replaces the Pallas VMEM probe; the cuco::static_set of
+  an insert kernel that builds the 16 B slots in one launch with no probe
+  cap (it replaces no Pallas kernel: the reference builds with XLA
+  scatter rounds, which give up after 16 probes; here those rounds remain
+  the CPU's build) and a probe kernel that reads a slot with one vector
+  load (replaces the Pallas VMEM probe; the cuco::static_set of
   distinct_hash_join.cu).
 * ``launch_check`` — ``o = 2·x``, on no engine path: the counterpart of
   the launch-and-return repro ``benchmarks/pallas_tunnel_repro.py``.
@@ -56,7 +59,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (argtypes, restype) of every C entry point, by source
 PROTOTYPES = {
     "launch_check": {"launch_check_double": ([_P, _P, _LL, _P], _I)},
-    "hashtable_probe": {"hashtable_probe": ([_P] * 4 + [_LL, _LL, _P], _I)},
+    "hashtable_probe": {"hashtable_probe": ([_P] * 4 + [_LL, _LL, _I, _P], _I),
+                        "hashtable_insert": ([_P] * 4 + [_LL, _LL, _P, _P], _I)},
     "onehot_groupby": {
         "onehot_groupby_blocks": ([_LL, _I, _I, _I, ctypes.POINTER(_I)], _I),
         "onehot_groupby_sum_count": ([_P] * 5 + [_LL, _I, _I, _I, _I, _P], _I)},

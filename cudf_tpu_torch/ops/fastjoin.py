@@ -9,15 +9,21 @@ is the hash table of ``kernels/hashtable.py``:
   2. pack both sides' equality operands, the null flag always among them,
      into two 32-bit words with one shared packing
      (``hashgroup.pack_key_words(..., joint_with=...)``);
-  3. ``build_table`` over the right side's active rows (in bounds and,
-     unless ``nulls_equal``, with a valid key), in a larger table while
-     some row finds no slot (``MAX_GROWTH``);
+  3. build the table over the right side's active rows (in bounds and,
+     unless ``nulls_equal``, with a valid key). On a card: one
+     ``insert_table`` kernel launch at ``table_size_for``, with no probe
+     cap, which returns the slots it claimed and the longest
+     displacement. On the CPU: ``build_table``'s rounds of at most
+     ``MAX_PROBE`` probes, in a larger table while some row finds no slot
+     (``MAX_GROWTH``);
   4. refuse (return None) when the keys do not pack into 64 bits, when a
-     row found no slot in the largest table, or — for inner and left
-     joins — when the build side is not distinct (fewer occupied slots
-     than active rows). Semi and anti joins only ask whether a key
-     exists, so duplicates are fine;
-  5. ``probe_table`` with the left side's words: a left row matches when
+     row found no slot in the largest table (the CPU's rounds only), or —
+     for inner and left joins — when the build side is not distinct
+     (fewer occupied slots than active rows). Semi and anti joins only
+     ask whether a key exists, so duplicates are fine;
+  5. ``probe_table`` with the left side's words, as far along each chain
+     as the build placed rows (``MAX_PROBE`` after the rounds, the
+     longest displacement + 1 after the kernel): a left row matches when
      the payload is a row id and the row is active (no launch when a side
      has no rows: its padding would only find ``EMPTY``);
   6. inner: the matched left rows in left-row order, each right column
@@ -29,8 +35,11 @@ is the hash table of ``kernels/hashtable.py``:
      the matched right rows in right-row order, each left column gathered
      at the payload; the output's columns are those of step 6.
 
-The lane choice depends only on the data. A CUDA tensor always takes the
-probe kernel; nothing is caught.
+The lane choice depends on the data and, for one case, the device: where
+the CPU's rounds leave a row without a slot even in the largest table and
+refuse the lane, the card's insert places every row and takes it. The
+answers are the same on either lane. A CUDA tensor always takes the insert
+and probe kernels; nothing is caught.
 """
 from __future__ import annotations
 
@@ -50,8 +59,9 @@ from .copying import gather
 # Linear probing at table_size_for's <= 50% load can leave a key more than
 # MAX_PROBE slots from its home on a large build side (the 7,289,153 TPC-H
 # SF10 order keys of chip_smoke.py's join leave rows unplaced in 2^24 slots
-# and place in 2^25). A build that leaves a row unplaced is retried in a
-# table twice the size, up to 2^MAX_GROWTH times table_size_for.
+# and place in 2^25). On the CPU a build that leaves a row unplaced is
+# retried in a table twice the size, up to 2^MAX_GROWTH times
+# table_size_for; the card's insert has no cap and builds once.
 MAX_GROWTH = 3
 
 
@@ -64,11 +74,19 @@ def _active(cols, nulls_equal: bool) -> torch.Tensor:
     return act
 
 
+def _one_insert(act: torch.Tensor) -> bool:
+    """Whether the build is one ``insert_table`` kernel launch with no
+    probe cap (a CUDA tensor), not the CPU's capped rounds."""
+    return act.device.type == "cuda"
+
+
 def build_hash_table(lcols, rcols, nulls_equal: bool):
     """Steps 2-3 for promoted key columns: (left words (q1, q2), table
-    (tk1, tk2, payload), active build rows), or None when the keys do not
-    pack into 64 bits or a row finds no slot in the largest table. One
-    ``hash_build`` range, a ``hash_build.round`` in it for each size."""
+    (tk1, tk2, payload), active build rows, occupied slots or None where
+    the build did not count them, the probe's ``max_probe``), or None when
+    the keys do not pack into 64 bits or a row finds no slot in the
+    largest table. One ``hash_build`` range, a ``hash_build.round`` in it
+    for each size: one on a card."""
     from .join import _join_key_operands
 
     with annotate("hash_build"):
@@ -80,12 +98,17 @@ def build_hash_table(lcols, rcols, nulls_equal: bool):
         with annotate("host_read.fastjoin.n_build"):
             n_build = int(r_act.sum().item())
         m = ht.table_size_for(n_build)
+        if _one_insert(r_act):
+            with annotate("hash_build.round"):
+                tk1, tk2, payload, occupied, longest = ht.insert_table(*r_words, r_act, m)
+            l_words = hashgroup.pack_like(_join_key_operands(lcols), mins, widths)
+            return l_words, (tk1, tk2, payload), n_build, occupied, longest + 1
         for _ in range(MAX_GROWTH + 1):
             with annotate("hash_build.round"):
                 tk1, tk2, payload, all_placed = ht.build_table(*r_words, r_act, m)
             if all_placed:
                 l_words = hashgroup.pack_like(_join_key_operands(lcols), mins, widths)
-                return l_words, (tk1, tk2, payload), n_build
+                return l_words, (tk1, tk2, payload), n_build, None, ht.MAX_PROBE
             m *= 2
         return None
 
@@ -101,14 +124,15 @@ def _match(probe: Table, build: Table, probe_on: Sequence[str],
     built = build_hash_table(pcols, bcols, nulls_equal)
     if built is None:
         return None
-    p_words, table, n_build = built
+    p_words, table, n_build, occupied, max_probe = built
     if distinct:
-        with annotate("host_read.fastjoin.distinct"):
-            occupied = int((table[2] != ht.EMPTY).sum().item())
+        if occupied is None:
+            with annotate("host_read.fastjoin.distinct"):
+                occupied = int((table[2] != ht.EMPTY).sum().item())
         if occupied != n_build:
             return None  # duplicate build keys: the general lane expands them
     if probe.num_rows and build.num_rows:
-        hit = ht.probe_table(*table, *p_words)
+        hit = ht.probe_table(*table, *p_words, max_probe)
     else:  # padding rows only on a side: nothing can match, nothing launches
         hit = torch.full_like(p_words[0], ht.EMPTY)
     return hit, (hit >= 0) & _active(pcols, nulls_equal)

@@ -35,14 +35,17 @@ The ranges, where each opens, and the benchmark metric that reads it
   ``ingest_host_share`` leaves its time out, ``ingest_h2d_gbps`` times the
   copies launched inside ``Table.from_pandas``;
 - ``hash_build``: ``ops/fastjoin.py:build_hash_table``, one hash build of
-  the join, and ``hash_build.round`` inside it around each
-  ``build_table`` at one table size; ``join_rebuild_share`` reads the
-  rounds before the last;
+  the join, and ``hash_build.round`` inside it around each build at one
+  table size: on a card the one ``insert_table`` launch, on the CPU each
+  ``build_table``; ``join_rebuild_share`` reads the rounds before the
+  last;
 - ``host_read.<site>``: each statement of ``ops/join.py``,
-  ``ops/fastjoin.py`` and ``kernels/hashtable.py:build_table`` that waits
-  for the card to hand the host a value (``host_read.join.n_out``,
-  ``host_read.fastjoin.distinct``, ``host_read.hashtable.pending``, ...);
-  ``join_host_reads`` counts them inside ``join``;
+  ``ops/fastjoin.py`` and ``kernels/hashtable.py`` (``build_table``'s
+  rounds, ``insert_table``) that waits for the card to hand the host a
+  value (``host_read.join.n_out``, ``host_read.fastjoin.distinct``,
+  ``host_read.hashtable.pending``, ``host_read.hashtable.counts`` — the
+  insert's slots claimed and longest displacement, one read a build on
+  a card —, ...); ``join_host_reads`` counts them inside ``join``;
 - ``host_read.ingest.nulls``: ``core/column.py:_validity_of_marked``, the
   one read of whether any row is null in a column whose values mark
   their nulls (a categorical's code -1, a datetime64/timedelta64 NaT),

@@ -356,3 +356,220 @@ def test_probe_kernel_chains_and_layouts_on_card(kind, layout):
     assert port.probe_table.packs == packs + (layout == "separate")
     assert got.tolist() == [want, port.EMPTY]
     assert torch.equal(got, port.probe_table_plain(*table, *q))
+
+
+# ------------------------------------------------ insert_table (no probe cap)
+def _first_rows(k1, k2, valid) -> dict:
+    """The dict oracle: each valid key's smallest row id."""
+    lut = {}
+    for i, (a, b) in enumerate(zip(k1, k2)):
+        if valid[i]:
+            lut.setdefault((int(a), int(b)), i)
+    return lut
+
+
+def _contents(table) -> dict:
+    tk1, tk2, pay = (x.cpu() for x in table)
+    occ = pay.numpy() != port.EMPTY
+    return {(int(a), int(b)): int(c) for a, b, c in
+            zip(_u32(tk1)[occ], _u32(tk2)[occ], pay.numpy()[occ])}
+
+
+def _longest(table) -> int:
+    """The longest displacement of a stored key from its home slot."""
+    tk1, tk2, pay = table
+    occ = pay != port.EMPTY
+    if not occ.any():
+        return 0
+    slot = torch.nonzero(occ).squeeze(1)
+    return int(((slot - port._mix(tk1[occ], tk2[occ])) & (tk1.shape[0] - 1)).max())
+
+
+def _queries(k1, k2):
+    """Every build key, then each key made absent (k1 < 2^16 in every
+    case, so k1 | 2^16 is no key)."""
+    return (np.concatenate([k1, k1 | np.uint32(1 << 16)]).astype(np.uint32),
+            np.concatenate([k2, k2]).astype(np.uint32))
+
+
+@pytest.mark.parametrize("name", BUILD_CASES)
+def test_insert_plain_places_every_key_with_its_smallest_row(name):
+    """The rounds with no cap: each valid key once, with its smallest valid
+    row id, the unplaced row of the capped rounds too; ``occupied`` the
+    distinct keys, ``longest`` the table's longest displacement; a probe
+    that far finds every key. Where the capped rounds place every row the
+    table is theirs, word for word."""
+    k1, k2, valid, m = _build_case(name)
+    args = (_t(k1), _t(k2), torch.from_numpy(valid), m)
+    if name == "too_full":  # 300 distinct keys, 256 slots
+        with pytest.raises(ValueError, match="no slot"):
+            port.insert_table_plain(*args)
+        return
+    tk1, tk2, pay, occupied, longest = port.insert_table_plain(*args)
+    want = _first_rows(k1, k2, valid)
+    assert _contents((tk1, tk2, pay)) == want
+    assert occupied == len(want)
+    assert longest == _longest((tk1, tk2, pay))
+    assert (longest >= port.MAX_PROBE) == (name in UNPLACED)
+    base = tk1._base
+    assert base.shape == (m + 1, 4) and base.data_ptr() % 16 == 0 and not base[:, 3].any()
+    assert torch.equal(port.slot_tensor(tk1, tk2, pay), base[:m])
+    capped = port.build_table(*args)
+    if capped[3]:
+        for got, ref_col in zip((tk1, tk2, pay), capped[:3]):
+            assert torch.equal(got, ref_col)
+    q1, q2 = _queries(k1, k2)
+    exp = [want.get((int(a), int(b)), port.EMPTY) for a, b in zip(q1, q2)]
+    got = port.probe_table(tk1, tk2, pay, _t(q1), _t(q2), max_probe=longest + 1)
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def _one_home_chain(m=1024, n=48):
+    """n keys (k1, 0), k1 small integers found by brute force, whose hash
+    lands on one home slot of m."""
+    k1 = np.arange(200_000, dtype=np.uint32)
+    homes = port._mix(_t(k1), _t(np.zeros_like(k1))).numpy() & (m - 1)
+    pick = k1[homes == homes[0]][:n]
+    assert len(pick) == n
+    return pick, np.zeros(n, np.uint32), m
+
+
+def test_insert_places_a_chain_past_max_probe_and_the_probe_needs_its_bound():
+    """48 keys on one home slot in m = 1024: the insert places them all,
+    the j-th row at displacement j; a probe of ``longest + 1`` slots finds
+    each, the default 16 only the first 16."""
+    k1, k2, m = _one_home_chain()
+    n = len(k1)
+    launches, past = port.insert_table.launches, port.insert_table.past_max_probe
+    tk1, tk2, pay, occupied, longest = port.insert_table(
+        _t(k1), _t(k2), torch.ones(n, dtype=torch.bool), m)
+    assert port.insert_table.launches == launches  # the CPU runs the plain version
+    assert port.insert_table.past_max_probe == past + 1
+    assert (occupied, longest) == (n, n - 1)
+    rows = np.arange(n, dtype=np.int32)
+    found = port.probe_table(tk1, tk2, pay, _t(k1), _t(k2), max_probe=longest + 1)
+    np.testing.assert_array_equal(found.numpy(), rows)
+    capped = port.probe_table(tk1, tk2, pay, _t(k1), _t(k2))
+    np.testing.assert_array_equal(capped.numpy(),
+                                  np.where(rows < port.MAX_PROBE, rows, port.EMPTY))
+    assert not port.build_table(_t(k1), _t(k2), torch.ones(n, dtype=torch.bool), m)[3]
+
+
+@pytest.mark.parametrize("probe", ["plain", "wrapper"])
+def test_max_probe_17_reaches_past_the_16_occupied(probe):
+    (tk1, tk2, pay), q1, q2, _ = _chain("absent_after_16_occupied")
+    fn = port.probe_table_plain if probe == "plain" else port.probe_table
+    args = (_t(tk1), _t(tk2), torch.from_numpy(pay), _t([q1, 99]), _t([q2, 98]))
+    assert fn(*args, max_probe=17).tolist() == [7, port.EMPTY]
+    assert fn(*args).tolist() == [port.EMPTY, port.EMPTY]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "valid_dtype", "lengths", "not_pow2", "too_big",
+                                 "devices", "contiguity", "meta", "max_probe"])
+def test_insert_and_probe_wrappers_reject_bad_inputs(bad):
+    n, m = 10, 16
+    k = [torch.arange(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32)]
+    valid = torch.ones(n, dtype=torch.bool)
+    err = ValueError
+    if bad == "dtype":
+        k[0], err = k[0].to(torch.int64), TypeError
+    elif bad == "valid_dtype":
+        valid, err = valid.to(torch.int32), TypeError
+    elif bad == "lengths":
+        valid = valid[:5]
+    elif bad == "not_pow2":
+        m = 12
+    elif bad == "too_big":
+        m = 1 << 31
+    elif bad == "devices":
+        valid = valid.to("meta")
+    elif bad == "contiguity":
+        k[1] = torch.zeros(2 * n, dtype=torch.int32)[::2]
+    elif bad == "meta":  # no kernel for the device: raises, launches nothing
+        k, valid = [x.to("meta") for x in k], valid.to("meta")
+    elif bad == "max_probe":
+        table = port.insert_table(*k, valid, m)[:3]
+        with pytest.raises(ValueError, match="max_probe"):
+            port.probe_table(*table, *k, max_probe=0)
+        return
+    launches = port.insert_table.launches
+    with pytest.raises(err):
+        port.insert_table(*k, valid, m)
+    assert port.insert_table.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BUILD_CASES)
+def test_insert_kernel_matches_plain_on_card(name):
+    """The kernel's table holds what the plain version's does (the layout
+    may differ: it depends on the schedule): the same probe answers and
+    ``occupied``; ``longest`` is the kernel's own table's longest
+    displacement. One launch a build."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    k1, k2, valid, m = _build_case(name)
+    cpu = (_t(k1), _t(k2), torch.from_numpy(valid), m)
+    card = (_t(k1).cuda(), _t(k2).cuda(), torch.from_numpy(valid).cuda(), m)
+    launches = port.insert_table.launches
+    if name == "too_full":
+        with pytest.raises(ValueError, match="no slot"):
+            port.insert_table(*card)
+        assert port.insert_table.launches == launches + 1
+        return
+    got = port.insert_table(*card)
+    torch.cuda.synchronize()
+    assert port.insert_table.launches == launches + 1
+    want = port.insert_table_plain(*cpu)
+    assert got[3] == want[3] and got[4] == _longest(got[:3])
+    assert _contents(got[:3]) == _contents(want[:3])
+    assert not got[0]._base[:, 3].any()
+    q1, q2 = _queries(k1, k2)
+    on_card = port.probe_table(*got[:3], _t(q1).cuda(), _t(q2).cuda(), max_probe=got[4] + 1)
+    plain = port.probe_table_plain(*want[:3], _t(q1), _t(q2), max_probe=want[4] + 1)
+    assert torch.equal(on_card.cpu(), plain)
+
+
+@pytest.mark.cuda
+def test_insert_kernel_keeps_the_smallest_row_of_each_repeated_key_on_card():
+    """1M rows over 1,000 keys, built 20 times: each key holds its smallest
+    row id, ``occupied`` is 1,000, and every build answers alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    rng = np.random.default_rng(11)
+    k1, k2 = _keys(rng, 1000)
+    pick = rng.integers(0, 1000, 1_000_000)
+    a, b = _t(k1[pick]).cuda(), _t(k2[pick]).cuda()
+    valid = torch.ones(len(pick), dtype=torch.bool, device="cuda")
+    want = _first_rows(k1[pick], k2[pick], np.ones(len(pick), bool))
+    q = (_t(k1).cuda(), _t(k2).cuda())
+    first = None
+    for _ in range(20):
+        tk1, tk2, pay, occupied, longest = port.insert_table(a, b, valid, 4096)
+        assert occupied == 1000
+        assert _contents((tk1, tk2, pay)) == want
+        hit = port.probe_table(tk1, tk2, pay, *q, max_probe=longest + 1)
+        first = hit if first is None else first
+        assert torch.equal(hit, first)
+    assert hit.tolist() == [want[(int(x), int(y))] for x, y in zip(k1, k2)]
+
+
+@pytest.mark.cuda
+def test_insert_kernel_places_the_rows_the_capped_rounds_leave_on_card():
+    """Keys 0..4,499,999 (TPC-H SF30's customers) in 2^24 slots: the
+    capped rounds leave a row unplaced there; the kernel places all, and a
+    probe as far as its longest displacement finds each. That longest
+    depends on the schedule (15 and 16 on the card), so ``past_max_probe``
+    counts the build exactly when it reaches MAX_PROBE."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    n, m = 4_500_000, 1 << 24
+    k1 = torch.arange(n, dtype=torch.int32, device="cuda")
+    k2 = torch.zeros(n, dtype=torch.int32, device="cuda")
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    past = port.insert_table.past_max_probe
+    tk1, tk2, pay, occupied, longest = port.insert_table(k1, k2, valid, m)
+    assert occupied == n and longest == _longest((tk1, tk2, pay))
+    assert port.insert_table.past_max_probe == past + (longest >= port.MAX_PROBE)
+    hit = port.probe_table(tk1, tk2, pay, k1, k2, max_probe=longest + 1)
+    assert torch.equal(hit, k1)
+    assert not port.build_table(k1, k2, valid, m)[3]

@@ -21,6 +21,7 @@ from cudf_tpu.ops.stream_compaction import apply_boolean_mask as r_apply_boolean
 
 import cudf_tpu_torch as tt
 from cudf_tpu_torch.kernels import hashtable as tht
+from cudf_tpu_torch.ops import fastjoin as tfastjoin
 from cudf_tpu_torch.ops import join as tjoin
 
 HOWS = ["inner", "left", "right", "semi", "anti", "full"]
@@ -186,6 +187,61 @@ def test_join_matches_reference_row_for_row(monkeypatch, name, how):
     got = tt.join(pl, pr, lon, ron, how, nulls_equal).to_pandas()
     assert_frames_equal(got, want)
     assert (probe.calls > 0, general.calls > 0) == _expected_lanes(how, lanes)
+
+
+@pytest.mark.parametrize("how", HOWS)
+@pytest.mark.parametrize("name", CASES)
+def test_one_insert_build_answers_as_the_rounds(monkeypatch, name, how):
+    """The card's build (one ``insert_table`` with no probe cap, whose
+    slot count answers the distinct test), taken on the CPU: the
+    reference's rows and the lanes of the capped rounds' build, which it
+    never calls."""
+    ldf, rdf, lon, ron, nulls_equal, lanes = _case(name)
+    (rl, rr), (pl, pr) = _tables(ldf, rdf)
+    if (name, how) == ("dtype_promotion", "full"):
+        # the reference refuses this case (test_join_matches_reference_row_for_row)
+        want = ldf.merge(rdf, left_on=lon, right_on=ron, how="outer")
+    else:
+        want = r_join(rl, rr, lon, ron, how, nulls_equal).to_pandas()
+    monkeypatch.setattr(tfastjoin, "_one_insert", lambda act: True)
+    inserts = Spy(monkeypatch, tht, "insert_table_plain")
+    rounds = Spy(monkeypatch, tht, "build_table")
+    probe = Spy(monkeypatch, tht, "probe_table")
+    general = Spy(monkeypatch, tjoin, "_probe")
+    got = tt.join(pl, pr, lon, ron, how, nulls_equal).to_pandas()
+    assert_frames_equal(got, want)
+    assert rounds.calls == 0 and (inserts.calls > 0) == lanes[0]
+    assert (probe.calls > 0, general.calls > 0) == _expected_lanes(how, lanes)
+
+
+def test_one_insert_takes_the_lane_the_rounds_rebuild_for(monkeypatch):
+    """16,000 distinct keys in 32,768 slots: the capped rounds build at
+    two sizes; the card's build inserts once at ``table_size_for`` and
+    probes as far as its longest displacement."""
+    rng = np.random.default_rng(5)
+    dim = rng.choice(2**40, 16_000, replace=False)
+    ldf = pd.DataFrame({"k": dim[rng.integers(0, len(dim), 5000)]})
+    rdf = pd.DataFrame({"k": dim, "w": np.arange(len(dim))})
+    (rl, rr), (pl, pr) = _tables(ldf, rdf)
+    monkeypatch.setattr(tfastjoin, "_one_insert", lambda act: True)
+    sizes, bounds = [], []
+    insert, probe = tht.insert_table_plain, tht.probe_table
+
+    def insert_spy(k1, k2, valid, m):
+        out = insert(k1, k2, valid, m)
+        sizes.append(m)
+        return out
+
+    def probe_spy(*args):
+        bounds.append(args[5])  # max_probe, after the table and the words
+        return probe(*args)
+
+    monkeypatch.setattr(tht, "insert_table_plain", insert_spy)
+    monkeypatch.setattr(tht, "probe_table", probe_spy)
+    got = tt.join(pl, pr, ["k"], ["k"]).to_pandas()
+    assert_frames_equal(got, r_join(rl, rr, ["k"], ["k"]).to_pandas())
+    assert sizes == [tht.table_size_for(len(dim))]
+    assert len(bounds) == 1 and bounds[0] > tht.MAX_PROBE
 
 
 UNORDERED = ["bench_join", "bench_join_i64", "orders_lineitem", "lineitem_orders",

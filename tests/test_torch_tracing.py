@@ -18,6 +18,7 @@ from cudf_tpu_torch import DataFrame, Table
 from cudf_tpu_torch.expr import expressions as E
 from cudf_tpu_torch.expr import ir as IR
 from cudf_tpu_torch.kernels import hashtable as ht
+from cudf_tpu_torch.ops import fastjoin
 from cudf_tpu_torch.ops import join as J
 from cudf_tpu_torch.ops.binaryop import binary_op
 from cudf_tpu_torch.utils import options as TO
@@ -36,12 +37,12 @@ COLUMNS = {
     "Int64": lambda: pd.array([1, None, 3, 4], dtype="Int64"),
 }
 
-# every host_read site of ops/join.py, ops/fastjoin.py and hashtable.build_table
+# every host_read site of ops/join.py, ops/fastjoin.py and kernels/hashtable.py
 SITES = {"host_read.fastjoin.n_build", "host_read.fastjoin.distinct",
          "host_read.fastjoin.matched", "host_read.join.n_out", "host_read.join.n_active",
          "host_read.join.group_start", "host_read.join.left_rows",
          "host_read.join.right_rows", "host_read.join.conditional_hits",
-         "host_read.hashtable.pending"}
+         "host_read.hashtable.pending", "host_read.hashtable.counts"}
 
 
 def _traced(fn):
@@ -238,6 +239,55 @@ def test_a_rebuilt_hash_table_opens_two_rounds_in_one_build(monkeypatch):
                    for e in reads) for r in rounds)
     want = left.merge(right, on="k")
     assert out.to_pandas().reset_index(drop=True).equals(want)
+
+
+def test_one_insert_opens_one_round_where_the_rounds_rebuild(monkeypatch):
+    """The card's build, taken on the CPU (``insert_table`` runs its plain
+    version there): where the capped rounds build twice, one round, no
+    distinct read (the insert counts its slots), the same rows."""
+    k = _rebuilding_key(monkeypatch)
+    lt, rt, left, right = _tables([0, k, k + 1], [0, k])
+    monkeypatch.setattr(fastjoin, "_one_insert", lambda act: True)
+    past = ht.insert_table.past_max_probe
+    out, events = _traced(lambda: J.join(lt, rt, ["k"], ["k"]))
+    (build,) = _named(events, "hash_build")
+    (rnd,) = _named(events, "hash_build.round")
+    assert rnd.cpu_parent is build and "join" in _ancestors(build)
+    assert not _named(events, "host_read.fastjoin.distinct")
+    assert ht.insert_table.past_max_probe == past + 1  # MAX_PROBE is 1 here
+    want = left.merge(right, on="k")
+    assert out.to_pandas().reset_index(drop=True).equals(want)
+
+
+@pytest.mark.cuda
+def test_a_card_join_builds_once_where_the_rounds_rebuild():
+    """16,000 distinct build keys in table_size_for's 32,768 slots, where
+    the capped rounds leave a row unplaced: on the card one
+    ``hash_build.round``, one ``host_read.hashtable.counts``, one insert
+    launch, no packing of the table, and the CPU join's rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    rng = np.random.default_rng(5)
+    dim = rng.choice(2**40, 16_000, replace=False)
+    left = pd.DataFrame({"k": dim[rng.integers(0, len(dim), 5000)],
+                         "v": np.arange(5000, dtype=np.float64)})
+    right = pd.DataFrame({"k": dim, "w": np.arange(len(dim), dtype=np.float64)})
+    k = torch.from_numpy(dim)
+    words = (k & 0xFFFFFFFF).to(torch.int32), (k >> 32).to(torch.int32)
+    assert not ht.build_table(*words, torch.ones(len(dim), dtype=torch.bool),
+                              ht.table_size_for(len(dim)))[3]
+    want = J.join(Table.from_pandas(left, device="cpu"),
+                  Table.from_pandas(right, device="cpu"), ["k"], ["k"]).to_pandas()
+    lt, rt = Table.from_pandas(left, device="cuda"), Table.from_pandas(right, device="cuda")
+    launches, packs = ht.insert_table.launches, ht.probe_table.packs
+    out, events = _traced(lambda: J.join(lt, rt, ["k"], ["k"]))
+    assert len(_named(events, "hash_build")) == 1
+    assert len(_named(events, "hash_build.round")) == 1
+    assert len(_named(events, "host_read.hashtable.counts")) == 1
+    assert not _named(events, "host_read.hashtable.pending")
+    assert ht.insert_table.launches == launches + 1
+    assert ht.probe_table.packs == packs
+    pd.testing.assert_frame_equal(out.to_pandas(), want)
 
 
 # each case: (left keys, right keys, nullable, how, ordered) and the sites it reads
